@@ -1,0 +1,30 @@
+"""gridapsolvers_tpu_torch — the PyTorch/CUDA port of gridapsolvers_tpu.
+
+The JAX package `gridapsolvers_tpu` is the reference; this package mirrors
+its layout and names so each module has an obvious counterpart:
+
+- ``interfaces``  : solver protocol (setup/update/solve/apply/smooth),
+                    tolerances, convergence flags and solver statistics.
+- ``utils``       : vector algebra over tensors and tuples of tensors,
+                    device resolution.
+- ``fem``         : structured Cartesian meshes, Q1 assembly (host NumPy)
+                    and the Poisson model problem.
+- ``multilevel``  : mesh hierarchies and structured grid transfers.
+- ``algebra``     : banded (`StencilMatrix`) and matrix-free constant
+                    (`ConstStencilMatrix`) stencil operators.
+- ``ops``         : hand-written CUDA kernels for the stencil matvecs
+                    (sources under ``csrc/``, built with nvcc at first use)
+                    beside their plain PyTorch versions.
+- ``linear``      : CG, Jacobi/Richardson/Chebyshev smoothers, dense
+                    coarse solvers and geometric multigrid.
+- ``models``      : the Poisson GMG-CG entry points.
+- ``convert``     : carries the JAX package's operators (as numpy arrays
+                    plus static fields) into this package's objects.
+
+Every constructor of operators and problems takes an explicit ``device=``
+and ``dtype=``. An operator's ``matvec`` launches its CUDA kernel on a
+CUDA tensor and runs the plain PyTorch version on a CPU tensor; there is
+no fallback between the two.
+"""
+
+__version__ = "0.1.0"

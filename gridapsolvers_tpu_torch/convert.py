@@ -1,0 +1,117 @@
+"""Carry the JAX package's operators and problem data into this package.
+
+Each function takes what a `gridapsolvers_tpu` object holds, handed over
+as numpy arrays plus its static fields (the caller does the `np.asarray`
+on the JAX side), and returns the port's object on `device`, so both
+packages apply literally the same operator. Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .algebra.stencil import ConstStencilMatrix, StencilMatrix
+from .fem.mesh import CartesianMesh
+from .fem.poisson import PoissonProblem
+from .multilevel.transfer import StructuredProlongation, StructuredRestriction
+from .utils import resolve_device
+
+
+def _tensor(a, device, dtype=None) -> Optional[torch.Tensor]:
+    if a is None:
+        return None
+    t = torch.from_numpy(np.array(a))  # a copy: JAX hands out read-only views
+    return t.to(device=resolve_device(device), dtype=dtype or t.dtype)
+
+
+def _offsets(offsets) -> Tuple[Tuple[int, ...], ...]:
+    return tuple(tuple(int(v) for v in off) for off in offsets)
+
+
+def stencil_matrix(
+    bands: np.ndarray,
+    offsets: Sequence[Sequence[int]],
+    grid_shape: Sequence[int],
+    periodic: Optional[Sequence[bool]] = None,
+    *,
+    device="cpu",
+    dtype=None,
+) -> StencilMatrix:
+    """`StencilMatrix` from (bands, offsets, grid_shape, periodic)."""
+    return StencilMatrix(
+        _tensor(bands, device, dtype),
+        _offsets(offsets),
+        tuple(int(m) for m in grid_shape),
+        None if periodic is None else tuple(bool(p) for p in periodic),
+    )
+
+
+def const_stencil_matrix(
+    weights: np.ndarray,
+    free: np.ndarray,
+    offsets: Sequence[Sequence[int]],
+    grid_shape: Sequence[int],
+    *,
+    device="cpu",
+    dtype=None,
+) -> ConstStencilMatrix:
+    """`ConstStencilMatrix` from (weights, free, offsets, grid_shape)."""
+    gs = tuple(int(m) for m in grid_shape)
+    return ConstStencilMatrix(
+        _tensor(np.asarray(weights).reshape(-1), device, dtype),
+        _tensor(np.asarray(free).reshape(gs), device, dtype),
+        _offsets(offsets),
+        gs,
+    )
+
+
+def prolongation(
+    fine_shape, coarse_shape, mask_fine=None, factors=None, periodic=None,
+    *, device="cpu", dtype=None,
+) -> StructuredProlongation:
+    """`StructuredProlongation` from the JAX one's fields and mask."""
+    return StructuredProlongation(
+        tuple(fine_shape), tuple(coarse_shape), _tensor(mask_fine, device, dtype),
+        None if factors is None else tuple(factors),
+        None if periodic is None else tuple(periodic),
+    )
+
+
+def restriction(
+    fine_shape, coarse_shape, mode="residual", mask_coarse=None, mask_fine=None,
+    factors=None, periodic=None, *, device="cpu", dtype=None,
+) -> StructuredRestriction:
+    """`StructuredRestriction` from the JAX one's fields and masks."""
+    return StructuredRestriction(
+        tuple(fine_shape), tuple(coarse_shape), mode,
+        _tensor(mask_coarse, device, dtype), _tensor(mask_fine, device, dtype),
+        None if factors is None else tuple(factors),
+        None if periodic is None else tuple(periodic),
+    )
+
+
+def poisson_problem(
+    mesh: CartesianMesh,
+    A: StencilMatrix,
+    A_full: StencilMatrix,
+    M: StencilMatrix,
+    b: np.ndarray,
+    u_exact: np.ndarray,
+    dirichlet_mask: np.ndarray,
+    *,
+    device="cpu",
+    dtype=None,
+) -> PoissonProblem:
+    """`PoissonProblem` from converted operators and the JAX problem's
+    b, u_exact and Dirichlet mask."""
+    return PoissonProblem(
+        mesh=mesh,
+        A=A,
+        A_full=A_full,
+        M=M,
+        b=_tensor(b, device, dtype),
+        u_exact=_tensor(u_exact, device, dtype),
+        dirichlet_mask=np.asarray(dirichlet_mask, dtype=bool),
+    )

@@ -1,0 +1,182 @@
+"""Smoothers and simple preconditioners.
+
+Port of the main-path part of `gridapsolvers_tpu/linear/smoothers.py`:
+
+- JacobiSolver            ← JacobiLinearSolvers.jl (diag⁻¹)
+- RichardsonSmoother      ← RichardsonSmoothers.jl:20-38,84-98 (the GMG
+                            (x, r)-updating smoothing contract)
+- ChebyshevSmoother       : matvec-only polynomial smoother on D⁻¹A, with
+                            λmax from Gershgorin or Lanczos.
+
+The spectral bounds are read to the host once at setup, so the smoothing
+recurrence runs on Python floats and launches no scalar kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..interfaces import LinearSolver, Smoother
+from ..utils import pytrees as pt
+
+
+@dataclasses.dataclass(frozen=True)
+class JacobiSolver(LinearSolver):
+    """Diagonal (point Jacobi) preconditioner
+    (reference JacobiLinearSolvers.jl:6-7,20-41)."""
+
+    def setup(self, A, x=None):
+        return {"inv_diag": pt.tree_map(lambda d: 1.0 / d, A.diag())}
+
+    def apply(self, state, r):
+        return pt.mul(state["inv_diag"], r)
+
+    def solve(self, state, b, x0=None):
+        return self.apply(state, b), None
+
+
+@dataclasses.dataclass(frozen=True)
+class RichardsonSmoother(Smoother):
+    """niter damped iterations x += ω M⁻¹ r; r -= A dx, updating x AND r —
+    the contract GMG pre/post-smoothing relies on
+    (reference RichardsonSmoothers.jl:20-38,84-98)."""
+
+    M: LinearSolver
+    niter: int = 1
+    omega: float = 1.0
+
+    def setup(self, A, x=None):
+        return {"A": A, "M": self.M.setup(A, x)}
+
+    def update(self, state, A, x=None):
+        return {"A": A, "M": self.M.update(state["M"], A, x)}
+
+    def smooth(self, state, x, r):
+        A = state["A"]
+        for _ in range(self.niter):
+            dx = pt.scale(self.omega, self.M.apply(state["M"], r))
+            x = pt.add(x, dx)
+            r = pt.sub(r, A.matvec(dx))
+        return x, r
+
+    def apply(self, state, r):
+        x, _ = self.smooth(state, pt.zeros_like(r), r)
+        return x
+
+    def solve(self, state, b, x0=None):
+        x = pt.zeros_like(b) if x0 is None else x0
+        r = pt.sub(b, state["A"].matvec(x))
+        x, _ = self.smooth(state, x, r)
+        return x, None
+
+
+def gershgorin_dinv_a_lmax(A, inv_diag) -> torch.Tensor:
+    """Guaranteed upper bound on lmax(D⁻¹A): max_i sum_j |a_ij| / a_ii.
+    Never underestimates, so it is safe for Chebyshev; typically ~30-40%
+    loose on FEM Laplacians."""
+    vals = pt.mul(inv_diag, A.abs_row_sum())
+    return max(torch.max(torch.abs(leaf)) for leaf in pt.tree_leaves(vals))
+
+
+def estimate_dinv_a_lmax(A, inv_diag, iters: int = 20) -> torch.Tensor:
+    """Largest eigenvalue of D⁻¹A via Lanczos on the symmetrized operator
+    M = D^{-1/2} A D^{-1/2} (same spectrum): a fixed-k Lanczos recurrence
+    plus eigvalsh of the small tridiagonal. The caller applies a safety
+    factor (Chebyshev amplifies catastrophically if lmax is
+    underestimated)."""
+    sq = pt.tree_map(torch.sqrt, inv_diag)
+
+    def Mop(v):
+        return pt.mul(sq, A.matvec(pt.mul(sq, v)))
+
+    leaves = pt.tree_leaves(inv_diag)
+    dtype, device = leaves[0].dtype, leaves[0].device
+    n = sum(leaf.numel() for leaf in leaves)
+    k = min(iters, max(2, n - 1))
+
+    # deterministic pseudo-random start, the JAX package's exactly
+    v = pt.tree_map(
+        lambda l: torch.sin(
+            torch.arange(1, l.numel() + 1, dtype=l.dtype, device=l.device) * 12.9898
+        ).reshape(l.shape),
+        inv_diag,
+    )
+    v = pt.scale(1.0 / pt.norm(v), v)
+    v_prev = pt.zeros_like(v)
+    beta_prev = torch.zeros((), dtype=dtype, device=device)
+    alphas = torch.zeros((k,), dtype=dtype, device=device)
+    betas = torch.zeros((k,), dtype=dtype, device=device)
+    for j in range(k):
+        w = Mop(v)
+        alpha = pt.dot(v, w)
+        w = pt.axpy(-alpha, v, pt.axpy(-beta_prev, v_prev, w))
+        beta = pt.norm(w)
+        safe = torch.where(beta > 0, beta, 1.0)
+        v, v_prev = pt.scale(1.0 / safe, w), v
+        beta_prev = beta
+        alphas[j] = alpha
+        betas[j] = beta
+    T = (
+        torch.diag(alphas)
+        + torch.diag(betas[: k - 1], 1)
+        + torch.diag(betas[: k - 1], -1)
+    )
+    return torch.max(torch.linalg.eigvalsh(T))
+
+
+@dataclasses.dataclass(frozen=True)
+class ChebyshevSmoother(Smoother):
+    """Chebyshev polynomial smoother on the Jacobi-preconditioned operator,
+    targeting the spectrum [lmax/ratio, lmax] of D⁻¹A (lmax from Lanczos
+    times `safety`, or the Gershgorin bound)."""
+
+    degree: int = 3
+    ratio: float = 30.0
+    safety: float = 1.1
+    lanczos_iters: int = 20
+    eig_method: str = "lanczos"  # 'lanczos' | 'gershgorin'
+
+    def setup(self, A, x=None):
+        inv_diag = pt.tree_map(lambda d: 1.0 / d, A.diag())
+        if self.eig_method == "gershgorin":
+            lmax = float(gershgorin_dinv_a_lmax(A, inv_diag))
+        elif self.eig_method == "lanczos":
+            lmax = float(estimate_dinv_a_lmax(A, inv_diag, self.lanczos_iters)) * self.safety
+        else:
+            raise ValueError(f"unknown eig_method {self.eig_method!r}")
+        return {"A": A, "inv_diag": inv_diag, "lmax": lmax, "lmin": lmax / self.ratio}
+
+    def update(self, state, A, x=None):
+        return self.setup(A, x)
+
+    def apply(self, state, r):
+        x, _ = self.smooth(state, pt.zeros_like(r), r)
+        return x
+
+    def smooth(self, state, x, r):
+        """Chebyshev iteration (three-term recurrence on the residual form;
+        see e.g. Adams et al., 'Parallel multigrid smoothing')."""
+        A, inv_diag = state["A"], state["inv_diag"]
+        lmax, lmin = state["lmax"], state["lmin"]
+        theta = 0.5 * (lmax + lmin)
+        delta = 0.5 * (lmax - lmin)
+        sigma1 = theta / delta
+        rho = 1.0 / sigma1
+
+        z = pt.mul(inv_diag, r)
+        d = pt.scale(1.0 / theta, z)
+        for _ in range(self.degree):
+            x = pt.add(x, d)
+            r = pt.sub(r, A.matvec(d))
+            rho_new = 1.0 / (2.0 * sigma1 - rho)
+            z = pt.mul(inv_diag, r)
+            d = pt.axpby(2.0 * rho_new / delta, z, rho_new * rho, d)
+            rho = rho_new
+        return x, r
+
+    def solve(self, state, b, x0=None):
+        x = pt.zeros_like(b) if x0 is None else x0
+        r = pt.sub(b, state["A"].matvec(x))
+        x, _ = self.smooth(state, x, r)
+        return x, None

@@ -1,0 +1,89 @@
+"""Vector algebra over tensors and tuples of tensors.
+
+Port of `gridapsolvers_tpu/utils/pytrees.py`. A vector is a
+`torch.Tensor`, or a (nested) tuple/list of tensors where the JAX package
+has a pytree of blocks; every function maps over the leaves. Reductions
+return 0-d tensors on the vectors' device, so nothing here waits for the
+device.
+"""
+from __future__ import annotations
+
+import functools
+import operator
+
+import torch
+
+
+def tree_leaves(x):
+    """Leaves of a tensor or (nested) tuple/list of tensors, in order."""
+    if isinstance(x, (tuple, list)):
+        return [leaf for xi in x for leaf in tree_leaves(xi)]
+    return [x]
+
+
+def tree_map(fn, x, *rest):
+    """Apply `fn` leafwise over one or more vectors of the same structure."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(tree_map(fn, *parts) for parts in zip(x, *rest))
+    return fn(x, *rest)
+
+
+def dot(a, b):
+    """Global inner product sum_i <a_i, b_i> over all leaves (real)."""
+    terms = [
+        torch.dot(x.reshape(-1), y.reshape(-1))
+        for x, y in zip(tree_leaves(a), tree_leaves(b))
+    ]
+    return functools.reduce(operator.add, terms)
+
+
+def norm(a):
+    """Global 2-norm over all leaves."""
+    return torch.sqrt(dot(a, a))
+
+
+def axpy(alpha, x, y):
+    """y + alpha * x."""
+    return tree_map(lambda xi, yi: yi + alpha * xi, x, y)
+
+
+def axpby(alpha, x, beta, y):
+    return tree_map(lambda xi, yi: alpha * xi + beta * yi, x, y)
+
+
+def scale(alpha, x):
+    return tree_map(lambda xi: alpha * xi, x)
+
+
+def add(x, y):
+    return tree_map(torch.add, x, y)
+
+
+def sub(x, y):
+    return tree_map(torch.sub, x, y)
+
+
+def mul(x, y):
+    """Elementwise (Hadamard) product."""
+    return tree_map(torch.mul, x, y)
+
+
+def zeros_like(x):
+    return tree_map(torch.zeros_like, x)
+
+
+def ravel(x):
+    """Flatten a vector into one 1D tensor."""
+    return torch.cat([leaf.reshape(-1) for leaf in tree_leaves(x)])
+
+
+def unflatten_like(flat, template):
+    """Inverse of `ravel` for a vector shaped like `template`."""
+    if not isinstance(template, (tuple, list)):
+        return flat.reshape(template.shape)
+    out, off = [], 0
+    for t in template:
+        n = sum(leaf.numel() for leaf in tree_leaves(t))
+        out.append(unflatten_like(flat[off : off + n], t))
+        off += n
+    return type(template)(out)

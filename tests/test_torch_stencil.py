@@ -1,0 +1,248 @@
+"""The port's stencil kernels K1 (constant stencil) and K2 (banded stencil),
+through their plain PyTorch versions, against the JAX package's operators
+and its Pallas kernels run in interpret mode.
+
+The CUDA kernels themselves need the card; `chip_smoke.py` holds them
+against these plain versions there.
+
+Tolerances: f64 results agree to rtol 1e-12 relative to the largest
+|y| (the two packages sum the same terms in the same order, but XLA may
+fuse multiply-adds); f32 results to 1e-6 of the largest |y|.
+"""
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import jax.numpy as jnp
+
+from gridapsolvers_tpu.algebra.stencil import ConstStencilMatrix as JConst
+from gridapsolvers_tpu.algebra.stencil import stencil_from_scipy as j_from_scipy
+from gridapsolvers_tpu.fem.assembly import eliminate_dirichlet as j_eliminate
+from gridapsolvers_tpu.fem.assembly import laplacian as j_laplacian
+from gridapsolvers_tpu.fem.assembly import laplacian_const as j_laplacian_const
+from gridapsolvers_tpu.fem.mesh import CartesianMesh as JMesh
+from gridapsolvers_tpu.ops import pallas_banded_stencil, pallas_const_stencil
+
+from gridapsolvers_tpu_torch import convert
+from gridapsolvers_tpu_torch.algebra import stencil_from_scipy
+from gridapsolvers_tpu_torch.ops import banded_stencil, const_stencil
+
+torch.set_num_threads(1)
+
+F64_RTOL = 1e-12
+F32_RTOL = 1e-6
+
+
+def _unit_mesh(ncells, periodic=None):
+    return JMesh(tuple(ncells), tuple(x for _ in ncells for x in (0.0, 1.0)), periodic)
+
+
+def _assert_close(y, y_ref, rtol):
+    y, y_ref = np.asarray(y, dtype=np.float64), np.asarray(y_ref, dtype=np.float64)
+    scale = np.max(np.abs(y_ref))
+    assert scale > 0
+    np.testing.assert_allclose(y, y_ref, rtol=0, atol=rtol * scale)
+
+
+def _port_const(Ac):
+    return convert.const_stencil_matrix(
+        np.asarray(Ac.weights), np.asarray(Ac.free), Ac.offsets, Ac.grid_shape
+    )
+
+
+def _port_banded(A, dtype=None):
+    return convert.stencil_matrix(
+        np.asarray(A.bands), A.offsets, A.grid_shape, A.periodic, dtype=dtype
+    )
+
+
+# ---------------------------------------------------------------- K1 -----
+
+
+@pytest.mark.parametrize("ncells", [(8, 8, 8), (16, 8, 4), (12, 12)])
+def test_const_stencil_plain_matches_pallas_and_jax(ncells):
+    Ac = j_laplacian_const(_unit_mesh(ncells))
+    x = np.random.default_rng(0).normal(size=Ac.n)
+    y_jax = np.asarray(Ac.matvec(jnp.asarray(x)))
+    y_pallas = np.asarray(
+        pallas_const_stencil(Ac, tile=3, interpret=True).matvec(jnp.asarray(x))
+    )
+    before = (const_stencil.counts.kernel, const_stencil.counts.plain)
+    y = _port_const(Ac).matvec(torch.from_numpy(x))
+    assert y.dtype == torch.float64 and y.shape == (Ac.n,)
+    # a CPU tensor runs the plain version, never the kernel
+    assert (const_stencil.counts.kernel, const_stencil.counts.plain) == (
+        before[0], before[1] + 1
+    )
+    _assert_close(y.numpy(), y_pallas, F64_RTOL)
+    _assert_close(y.numpy(), y_jax, F64_RTOL)
+
+
+@pytest.mark.parametrize("ncells", [(9, 7, 6), (10, 13)])
+def test_const_stencil_plain_random_interior_mask(ncells):
+    """Any mask, not only a boundary one (the Pallas twin is exact only for
+    full-boundary Dirichlet, so it is left out here)."""
+    rng = np.random.default_rng(1)
+    A0 = j_laplacian_const(_unit_mesh(ncells))
+    free = (rng.random(A0.grid_shape) < 0.7).astype(np.float64)
+    Aj = JConst(jnp.asarray(A0.weights), jnp.asarray(free), A0.offsets, A0.grid_shape)
+    x = rng.normal(size=Aj.n)
+    y = _port_const(Aj).matvec(torch.from_numpy(x))
+    _assert_close(y.numpy(), np.asarray(Aj.matvec(jnp.asarray(x))), F64_RTOL)
+
+
+def test_const_stencil_diag_abs_row_sum():
+    Ac = j_laplacian_const(_unit_mesh((6, 5, 4)))
+    P = _port_const(Ac)
+    np.testing.assert_allclose(P.diag().numpy(), np.asarray(Ac.diag()), rtol=1e-15)
+    np.testing.assert_allclose(
+        P.abs_row_sum().numpy(), np.asarray(Ac.abs_row_sum()), rtol=1e-15
+    )
+
+
+# ---------------------------------------------------------------- K2 -----
+
+
+def _dirichlet_laplacian(ncells, dtype=np.float64):
+    mesh = _unit_mesh(ncells)
+    return j_eliminate(j_laplacian(mesh, dtype), mesh.boundary_vertex_mask())
+
+
+@pytest.mark.parametrize("ncells", [(7, 15, 15), (7, 12, 10), (15, 15)])
+def test_banded_stencil_plain_matches_pallas_and_jax_f64(ncells):
+    A = _dirichlet_laplacian(ncells)
+    x = np.random.default_rng(0).normal(size=A.n)
+    y_jax = np.asarray(A.matvec(jnp.asarray(x)))
+    y_pallas = np.asarray(
+        pallas_banded_stencil(A, tile=8, interpret=True).matvec(jnp.asarray(x))
+    )
+    before = (banded_stencil.counts.kernel, banded_stencil.counts.plain)
+    y = _port_banded(A).matvec(torch.from_numpy(x))
+    assert (banded_stencil.counts.kernel, banded_stencil.counts.plain) == (
+        before[0], before[1] + 1
+    )
+    _assert_close(y.numpy(), y_pallas, F64_RTOL)
+    _assert_close(y.numpy(), y_jax, F64_RTOL)
+
+
+@pytest.mark.parametrize("ncells", [(7, 15, 15), (15, 15)])
+def test_banded_stencil_plain_f32(ncells):
+    A = _dirichlet_laplacian(ncells, np.float32)
+    A = A.astype(jnp.float32)
+    x = np.random.default_rng(2).normal(size=A.n).astype(np.float32)
+    y_jax = np.asarray(A.matvec(jnp.asarray(x)))
+    assert y_jax.dtype == np.float32
+    y = _port_banded(A).matvec(torch.from_numpy(x))
+    assert y.dtype == torch.float32
+    _assert_close(y.numpy(), y_jax, F32_RTOL)
+
+
+@pytest.mark.parametrize("ncells", [(7, 15, 15), (15, 15)])
+def test_banded_stencil_plain_bf16_bands(ncells):
+    """bf16 bands with an f32 vector, summed in f32, against the JAX
+    bf16-band operator and the bf16 Pallas kernel."""
+    A = _dirichlet_laplacian(ncells, np.float32).astype(jnp.float32)
+    A16 = A.astype(jnp.bfloat16)
+    x = np.random.default_rng(3).normal(size=A.n).astype(np.float32)
+    y_jax = np.asarray(A16.matvec(jnp.asarray(x)))
+    assert y_jax.dtype == np.float32
+    y_pallas = np.asarray(
+        pallas_banded_stencil(
+            A, tile=8, band_dtype=jnp.bfloat16, interpret=True
+        ).matvec(jnp.asarray(x))
+    )
+    # the JAX bf16 bands, widened exactly to f32, then narrowed exactly back
+    P = convert.stencil_matrix(
+        np.asarray(A16.bands).astype(np.float32), A.offsets, A.grid_shape,
+        dtype=torch.bfloat16,
+    )
+    assert P.bands.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        P.bands.float().numpy(), np.asarray(A16.bands).astype(np.float32)
+    )
+    y = P.matvec(torch.from_numpy(x))
+    assert y.dtype == torch.float32
+    _assert_close(y.numpy(), y_jax, F32_RTOL)
+    _assert_close(y.numpy(), y_pallas, F32_RTOL)
+
+
+@pytest.mark.parametrize("periodic", [(True, False, True), (False, True)])
+def test_banded_stencil_plain_periodic(periodic):
+    ncells = (6, 5, 4)[: len(periodic)]
+    A = j_laplacian(_unit_mesh(ncells, periodic))
+    assert A.periodic == periodic
+    x = np.random.default_rng(4).normal(size=A.n)
+    y = _port_banded(A).matvec(torch.from_numpy(x))
+    _assert_close(y.numpy(), np.asarray(A.matvec(jnp.asarray(x))), F64_RTOL)
+
+
+def _q2_like_scipy(gs, seed):
+    """Random operator with a 5^d offset envelope: kron of pentadiagonals."""
+    rng = np.random.default_rng(seed)
+    S = None
+    for m in gs:
+        T = sp.diags(
+            [rng.normal(size=m - abs(k)) for k in range(-2, 3)], range(-2, 3),
+            format="csr",
+        )
+        S = T if S is None else sp.kron(S, T, format="csr")
+    S.eliminate_zeros()  # kron keeps explicit zeros outside the envelope
+    return S
+
+
+@pytest.mark.parametrize("gs", [(6, 7, 5), (9, 8)])
+def test_banded_stencil_plain_5d_offsets_from_scipy(gs):
+    S = _q2_like_scipy(gs, seed=5)
+    Aj = j_from_scipy(S, gs)
+    assert len(Aj.offsets) == 5 ** len(gs)
+    P_own = stencil_from_scipy(S, gs)
+    assert P_own.offsets == Aj.offsets
+    np.testing.assert_array_equal(P_own.bands.numpy(), np.asarray(Aj.bands))
+    x = np.random.default_rng(6).normal(size=Aj.n)
+    y = P_own.matvec(torch.from_numpy(x)).numpy()
+    _assert_close(y, np.asarray(Aj.matvec(jnp.asarray(x))), F64_RTOL)
+    _assert_close(y, S @ x, F64_RTOL)
+    _assert_close(_port_banded(Aj).matvec(torch.from_numpy(x)).numpy(), S @ x, F64_RTOL)
+
+
+def test_banded_stencil_diag_abs_row_sum():
+    A = _dirichlet_laplacian((6, 5, 4))
+    P = _port_banded(A)
+    np.testing.assert_array_equal(P.diag().numpy(), np.asarray(A.diag()))
+    np.testing.assert_allclose(
+        P.abs_row_sum().numpy(), np.asarray(A.abs_row_sum()), rtol=1e-15
+    )
+
+
+# ------------------------------------------------------- the wrappers -----
+
+
+def test_wrappers_import_and_refuse_without_building():
+    """Importing the kernel modules builds nothing; the CUDA wrappers check
+    their inputs before any build or launch and raise on what they do not
+    take."""
+    from gridapsolvers_tpu_torch.ops import build
+
+    assert build.library_path("const_stencil").parent == build.BUILD_DIR
+    assert build.library_path("banded_stencil").name.startswith("libbanded_stencil-")
+    Ac = _port_const(j_laplacian_const(_unit_mesh((4, 4, 4))))
+    x = torch.zeros(Ac.n, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        const_stencil.const_stencil_cuda(Ac.weights, Ac.free, Ac.offsets, Ac.grid_shape, x)
+    bad_offsets = tuple(reversed(Ac.offsets))
+    with pytest.raises(ValueError, match="sorted"):
+        const_stencil.const_stencil_cuda(Ac.weights, Ac.free, bad_offsets, Ac.grid_shape, x)
+    A = _port_banded(_dirichlet_laplacian((4, 4, 4)))
+    with pytest.raises(ValueError, match="CUDA"):
+        banded_stencil.banded_stencil_cuda(A.bands, A.offsets, A.grid_shape, (False,) * 3, x)
+
+
+def test_vector_on_another_device_raises():
+    A = _port_banded(_dirichlet_laplacian((4, 4, 4)))
+    Ac = _port_const(j_laplacian_const(_unit_mesh((4, 4, 4))))
+    x = torch.empty(A.n, dtype=torch.float64, device="meta")
+    with pytest.raises(ValueError):
+        A.matvec(x)
+    with pytest.raises(ValueError):
+        Ac.matvec(x)
