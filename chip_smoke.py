@@ -3,32 +3,42 @@
 
 Run from the repository root on a machine with one CUDA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile DIR]
 
-It builds both hand-written kernels from `gridapsolvers_tpu_torch/csrc/`
-(nvcc, sm_90a) and drives the port's GMG-CG Poisson main path through its
-public entry points, in phases that each print one line:
+It builds the three hand-written kernels from `gridapsolvers_tpu_torch/csrc/`
+(nvcc, sm_90a, all three at once) and drives the port's Poisson paths
+through their public entry points, in phases that each print one line:
 
   1 device   card name and power limit (nvidia-smi), TF32 off
-  2 build    both kernels, with build seconds and ptxas register counts
-  3 kernels  K1 and K2 against their plain PyTorch versions on the card
+  2 build    the kernels, with build seconds and ptxas register counts
+  3 kernels  K1, K2 and K3 against their plain PyTorch versions on the card
   4 path A   solve_poisson_const (constant stencils, K1), f32, 32^3 and 128^3
   5 path B   solve_poisson (banded stencils, K2), f64, 64^3 and 128^3
-  6 times    per-apply kernel and plain times, and each 128^3 solve
+  6 path C   CG + smoothed-aggregation AMG (K2 finest level, K3 below and
+             for every transfer), f32, 32^3 and 128^3
+  7 K3 ops   K3 on path C's own 128^3 level operators, P and R (f32, bf16
+             values, one f64 level) against its plain version
+  8 times    per-apply kernel, plain, library and bound times, and each
+             128^3 solve
 
-The launch counts of the two 128^3 solves show that every stencil apply
-went through the kernels. Any failed check raises, so a failure exits
-non-zero. The line before the last is a JSON summary of the kernels; the
-last line is {"ok": true, "device": {...}}. Without CUDA it exits non-zero
-before printing any result.
+Each path's 128^3 run starts with every launch count at 0 and is read
+right after, so the counts show that every operator apply went through
+the kernels. Any failed check raises, so a failure exits non-zero. The
+line before the last is a JSON summary of the kernels; the last line is
+{"ok": true, "device": {...}}. Without CUDA it exits non-zero before
+printing any result. `--profile DIR` adds a torch.profiler trace of one
+path C solve (kernel table in DIR, summary line printed).
 """
 from __future__ import annotations
 
+import argparse
+import concurrent.futures
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import scipy.sparse as sp
@@ -36,19 +46,26 @@ import torch
 
 # imported before anything is printed: a copy of this script without the
 # package fails here, with no output
-from gridapsolvers_tpu_torch.algebra import stencil_from_scipy
-from gridapsolvers_tpu_torch.fem import CartesianMesh
+from gridapsolvers_tpu_torch.algebra import ell_from_scipy, stencil_from_scipy, to_scipy
+from gridapsolvers_tpu_torch.algebra.ell import ELLMatrix
+from gridapsolvers_tpu_torch.fem import CartesianMesh, poisson_problem
 from gridapsolvers_tpu_torch.fem.assembly import eliminate_dirichlet, laplacian, laplacian_const
-from gridapsolvers_tpu_torch.linear import ChebyshevSmoother
+from gridapsolvers_tpu_torch.linear import AMGSolver, CGSolver, ChebyshevSmoother
 from gridapsolvers_tpu_torch.models import solve_poisson, solve_poisson_const
 from gridapsolvers_tpu_torch.ops import banded_stencil as k2
 from gridapsolvers_tpu_torch.ops import build
 from gridapsolvers_tpu_torch.ops import const_stencil as k1
+from gridapsolvers_tpu_torch.ops import ell_spmv as k3
 
 F32_TOL = 1e-6   # max|y - y_ref| / max|y_ref|: reordered f32 sums, FMA contraction
 F64_TOL = 1e-13
 TIMING_RUNS = 30
 DEVICE = "cuda:0"
+NC = 128                 # cells per axis of the main-path runs (129^3 dofs)
+ITS = {"A": (4, 4), "B": (6, 6), "C": (7, 9)}   # CG iterations asserted at NC^3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+KERNELS = ("const_stencil", "banded_stencil", "ell_spmv")
+COUNTS = {"K1": k1.counts, "K2": k2.counts, "K3": k3.counts}
 
 
 def relerr(y, y_ref) -> float:
@@ -59,6 +76,18 @@ def abserr(y, y_ref) -> float:
     return float((y.double() - y_ref.double()).abs().max())
 
 
+def reset_counts() -> None:
+    for c in COUNTS.values():
+        c.reset()
+
+
+def read_counts() -> dict:
+    """Kernel launches by kernel; raises if any plain version ran."""
+    plain = {k: c.plain for k, c in COUNTS.items() if c.plain}
+    assert not plain, f"plain versions ran on the main path: {plain}"
+    return {k: c.kernel for k, c in COUNTS.items()}
+
+
 def cg_gmg_applies(niter: int, levels: int, degree: int) -> int:
     """Operator applies of one GMG-preconditioned CG solve (linear/cg.py,
     linear/gmg.py): the initial residual and one apply per iteration, plus
@@ -66,6 +95,20 @@ def cg_gmg_applies(niter: int, levels: int, degree: int) -> int:
     Chebyshev sweep (pre and post) and once for the correction residual on
     each of the levels-1 smoothing levels, and once on the coarsest."""
     return (niter + 1) * ((levels - 1) * (2 * degree + 1) + 2)
+
+
+def cg_amg_applies(niter: int, levels: int, degree: int, lanczos: int):
+    """(K2, K3) launches of one AMG-preconditioned CG run from set-up to L2
+    error (linear/amg.py, linear/cg.py, linear/smoothers.py). Set-up: one
+    Lanczos run on every smoothing level (the finest is the stencil, K2).
+    Solve: CG applies the stencil once at the start and once per
+    iteration; each of the niter+1 V-cycles applies every smoothing level
+    2k+1 times, the coarsest once (its residual) and each of the L-1 P and
+    R once. The L2 error applies the mass stencil once."""
+    k2_count = lanczos + (niter + 1) * (2 * degree + 2) + 1
+    k3_count = lanczos * (levels - 2) + (niter + 1) * (
+        (levels - 2) * (2 * degree + 1) + 1 + 2 * (levels - 1))
+    return k2_count, k3_count
 
 
 def median_ms(fn, runs=TIMING_RUNS, warmup=3, before=None, spin=True) -> float:
@@ -91,7 +134,91 @@ def median_ms(fn, runs=TIMING_RUNS, warmup=3, before=None, spin=True) -> float:
     return statistics.median(times)
 
 
+def build_all() -> str:
+    """nvcc for every kernel source at once; the build log's register line."""
+    def one(name):
+        t0 = time.perf_counter()
+        path = build.build(name)
+        return time.perf_counter() - t0, path
+
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        done = dict(zip(KERNELS, pool.map(one, KERNELS)))
+    parts = []
+    for name, (secs, path) in done.items():
+        build.load(name)
+        regs = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
+                if "registers" in ln]
+        parts.append(f"{name} {secs:.1f} s ({'; '.join(regs)})")
+    return " | ".join(parts)
+
+
+def csr_of(S, dev, dtype) -> torch.Tensor:
+    """A scipy matrix as a torch CSR tensor on the card: the cuSPARSE
+    yardstick, never called by the port."""
+    values = torch.from_numpy(S.data).to(dev, dtype)
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(S.indptr).to(dev, torch.int64),
+        torch.from_numpy(S.indices).to(dev, torch.int64), values, size=S.shape,
+        check_invariants=False,
+    )
+
+
+def ell_bound_ms(A: ELLMatrix, x: torch.Tensor) -> float:
+    """Bytes K3 must move (values and int32 columns of every stored slot,
+    x and y once each) over the card's memory rate."""
+    nbytes = A.nnz * (A.values.element_size() + 4) + (A.ncols + A.nrows) * x.element_size()
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def solve_amg(nc, dev, maxiter=60):
+    """Path C through the public API: f32 3D Q1 Poisson, CG + AMG."""
+    prob = poisson_problem((nc,) * 3, dtype=torch.float32, device=dev)
+    cg = CGSolver(Pl=AMGSolver(coarse_size=400), rtol=1e-6, maxiter=maxiter)
+    t0 = time.perf_counter()
+    state = cg.setup(prob.A)
+    setup_s = time.perf_counter() - t0
+    x, st = cg.solve(state, prob.b)
+    l2 = float(prob.l2_error(x))
+    return prob, cg, state, x, st, l2, setup_s
+
+
+def profile_solve(solve, out_dir: Path) -> str:
+    """torch.profiler over one solve: kernels launched, device busy time and
+    the device's idle share of the traced wall time; the kernel table goes
+    to out_dir."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    (out_dir / "profile_path_c.txt").write_text(
+        "\n".join(f"{us / 1e3:10.3f} ms {n:6d}  {name}" for name, (n, us) in rows) + "\n")
+    top = ", ".join(f"{name[:40]} {us / 1e3:.2f} ms ({n})" for name, (n, us) in rows[:6])
+    return (f"kernels launched {len(kernels)}, device busy {busy_us / 1e3:.2f} ms of "
+            f"{wall_us / 1e3:.2f} ms traced wall, idle share {1 - busy_us / wall_us:.1%}; {top}")
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--profile", type=Path, default=None,
+                        help="also trace one path C solve; kernel table written to this directory")
+    opts = parser.parse_args()
+    t_start = time.perf_counter()
+
+    def elapsed():
+        return f"[{time.perf_counter() - t_start:.0f} s]"
+
     # ---- 1 device -------------------------------------------------------
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -109,22 +236,14 @@ def main() -> None:
           f"cuda {torch.version.cuda} | tf32 matmul/cudnn off", flush=True)
 
     dev = torch.device(DEVICE)
+    N1 = NC + 1
 
     # ---- 2 build --------------------------------------------------------
-    parts = []
-    for name in ("const_stencil", "banded_stencil"):
-        t0 = time.perf_counter()
-        path = build.build(name)
-        secs = time.perf_counter() - t0
-        build.load(name)
-        regs = [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
-                if "registers" in ln]
-        parts.append(f"{name} {secs:.1f} s ({'; '.join(regs)})")
-    print("[2 build] " + " | ".join(parts), flush=True)
+    print(f"[2 build] {build_all()} {elapsed()}", flush=True)
 
     # ---- 3 kernels against their plain versions -------------------------
     rng = np.random.default_rng(0)
-    level_shapes = [(129,) * 3, (65,) * 3, (33,) * 3, (17,) * 3, (129, 129), (17, 9, 5)]
+    level_shapes = [(N1,) * 3, (65,) * 3, (33,) * 3, (17,) * 3, (129, 129), (17, 9, 5)]
 
     def mesh_of(shape, periodic=None):
         ncells = tuple(m if periodic and periodic[k] else m - 1 for k, m in enumerate(shape))
@@ -133,7 +252,7 @@ def main() -> None:
     def vec(n, dtype):
         return torch.from_numpy(rng.normal(size=n)).to(dev, dtype)
 
-    worst = {"K1": 0.0, "K2": 0.0}
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
     lines = []
 
     def check(tag, key, y, y_ref, tol):
@@ -144,6 +263,10 @@ def main() -> None:
         worst[key] = max(worst[key], abserr(y, y_ref))
         assert e <= tol, f"{tag}: max relative error {e:.3e} > {tol:.0e}"
         lines.append(f"{tag} {e:.2e}")
+
+    def check_k3(tag, A, x, tol):
+        check(tag, "K3", k3.ell_spmv_cuda(A.values, A.cols, x, A.ncols),
+              k3.ell_spmv_plain(A.values, A.cols, x), tol)
 
     for shape in level_shapes:
         for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
@@ -182,25 +305,68 @@ def main() -> None:
                   k2.banded_stencil_cuda(*args), k2.banded_stencil_plain(*args), tol)
     # K1 and K2 on the same operator: the Dirichlet-eliminated Laplacian
     for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
-        mesh = mesh_of((129,) * 3)
+        mesh = mesh_of((N1,) * 3)
         Ac = laplacian_const(mesh, dt, dev)
         Ab = eliminate_dirichlet(laplacian(mesh, dt, dev), mesh.boundary_vertex_mask())
         x = vec(Ac.n, dt)
-        check(f"K1=K2(129^3){str(dt)[6:]}", "K1", Ac.matvec(x), Ab.matvec(x), tol)
+        check(f"K1=K2({N1}^3){str(dt)[6:]}", "K1", Ac.matvec(x), Ab.matvec(x), tol)
+    # K3: the Laplacian as an ELL (zero face couplings dropped), and K3
+    # against K2 on it; then random patterns, square and rectangular, with
+    # row counts that fill no whole block and row widths of every group size
+    Aell = ell_from_scipy(to_scipy(Ab), device=dev)  # Ab is the f64 one
+    assert Aell.row_width == 21, Aell.row_width
+    for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        A = Aell.astype(dt)
+        x = vec(A.ncols, dt)
+        check_k3(f"K3[lap {N1}^3 K={A.row_width}]{str(dt)[6:]}", A, x, tol)
+        check(f"K3=K2({N1}^3){str(dt)[6:]}", "K3", A.matvec(x), Ab.astype(dt).matvec(x), tol)
+    for nrows, ncols, K in ((300_001, 1_000_003, 20), (100, 100, 7), (1001, 1001, 27),
+                            (12_345, 777, 13), (777, 12_345, 1), (50_001, 50_001, 3),
+                            (4099, 4099, 64)):
+        cols = torch.from_numpy(rng.integers(0, ncols, size=(nrows, K), dtype=np.int32)).to(dev)
+        vals = torch.from_numpy(rng.normal(size=(nrows, K))).to(dev)
+        for v_dt, x_dt, tol in ((torch.float32, torch.float32, F32_TOL),
+                                (torch.bfloat16, torch.float32, F32_TOL),
+                                (torch.float64, torch.float64, F64_TOL)):
+            A = ELLMatrix(vals.to(v_dt), cols, ncols)
+            check_k3(f"K3[rand {nrows}x{ncols} K={K}]{str(v_dt)[6:]}", A, vec(ncols, x_dt), tol)
     print(f"[3 kernels] {len(lines)} cases within f32 {F32_TOL:.0e} / f64 {F64_TOL:.0e} "
-          f"(bf16 bands against the plain version on the same bands): " + ", ".join(lines),
-          flush=True)
-    del extra, S, Ac, Ab, A, A64, x, args
+          f"(bf16 bands and values against the plain version on the same bf16 data): "
+          + ", ".join(lines) + f" {elapsed()}", flush=True)
+    del extra, S, Ac, Ab, A, A64, x, args, Aell, cols, vals
+    lines.clear()
 
-    # ---- 4, 5 main paths: small checks first, then the counted 128^3 run -
+    # ---- 4, 5, 6 main paths: small checks, then each counted NC^3 run ---
     deg = ChebyshevSmoother().degree
     lanczos = ChebyshevSmoother().lanczos_iters
+    launches = {}
+
+    # path A: constant stencils (K1)
     x, st, _ = solve_poisson_const((32,) * 3, 3, device=dev, dtype=torch.float32)
     assert st.niter == 4 and st.converged(), (st.niter, st.flag)
     x_cpu, st_cpu, _ = solve_poisson_const((32,) * 3, 3, device="cpu", dtype=torch.float32)
     assert st_cpu.niter == st.niter
     e32 = relerr(x.cpu(), x_cpu)
     assert e32 <= 1e-4, f"32^3 f32 solve: card vs CPU plain path {e32:.2e}"
+    reset_counts()
+    t0 = time.perf_counter()
+    xA, stA, infoA = solve_poisson_const((NC,) * 3, 4, device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    secsA = time.perf_counter() - t0
+    launches["A"] = read_counts()
+    nA = cg_gmg_applies(stA.niter, 4, deg)
+    assert ITS["A"][0] <= stA.niter <= ITS["A"][1] and stA.converged(), (stA.niter, stA.flag)
+    assert xA.shape == (N1 ** 3,) and bool(torch.isfinite(xA).all())
+    assert infoA["l2_error"] <= 2e-4, infoA["l2_error"]
+    assert launches["A"] == {"K1": nA, "K2": 1, "K3": 0}, (launches["A"], nA)  # K2: L2 error
+    print(f"[4 path A] solve_poisson_const f32: 32^3/3 levels {st.niter} its (CPU plain path "
+          f"{st_cpu.niter} its, x rel diff {e32:.1e}); {NC}^3/4 levels {stA.niter} its, "
+          f"flag {stA.flag}, L2 error {infoA['l2_error']:.3e}, "
+          f"{secsA:.2f} s incl. setup; K1 launches {launches['A']['K1']} = "
+          f"(n+1)((L-1)(2k+1)+2) = {nA}, K2 launches 1 (L2 error), plain launches 0 "
+          f"{elapsed()}", flush=True)
+
+    # path B: banded stencils (K2), f64
     _, st64, info64 = solve_poisson((64,) * 3, 4, rtol=1e-8, dtype=torch.float64, device=dev)
     assert st64.niter == 7 and st64.converged(), (st64.niter, st64.flag)
     x16, st16, _ = solve_poisson((16,) * 3, 3, rtol=1e-8, dtype=torch.float64, device=dev)
@@ -208,54 +374,82 @@ def main() -> None:
     assert st16.niter == st16c.niter == 7
     e16 = relerr(x16.cpu(), x16c)
     assert e16 <= 1e-10, f"16^3 f64 solve: card vs CPU plain path {e16:.2e}"
-
-    # the main path's run: every launch count starts at 0 here
-    for c in (k1.counts, k2.counts):
-        c.reset()
+    reset_counts()
     t0 = time.perf_counter()
-    xA, stA, infoA = solve_poisson_const((128,) * 3, 4, device=dev, dtype=torch.float32)
-    torch.cuda.synchronize()
-    secsA = time.perf_counter() - t0
-    k1A, k2A = k1.counts.kernel, k2.counts.kernel
-    t0 = time.perf_counter()
-    xB, stB, infoB = solve_poisson((128,) * 3, 4, rtol=1e-8, dtype=torch.float64, device=dev)
+    xB, stB, infoB = solve_poisson((NC,) * 3, 4, rtol=1e-8, dtype=torch.float64, device=dev)
     torch.cuda.synchronize()
     secsB = time.perf_counter() - t0
-    k1B, k2B = k1.counts.kernel - k1A, k2.counts.kernel - k2A
-    launches = {"K1": k1.counts.kernel, "K2": k2.counts.kernel}
-    assert k1.counts.plain == 0 and k2.counts.plain == 0, (k1.counts, k2.counts)
-
-    nA = cg_gmg_applies(stA.niter, 4, deg)
-    assert stA.niter == 4 and stA.converged(), (stA.niter, stA.flag)
-    assert xA.shape == (129 ** 3,) and bool(torch.isfinite(xA).all())
-    assert infoA["l2_error"] <= 2e-4, infoA["l2_error"]
-    assert k1A == nA == 115, (k1A, nA)
-    assert k2A == 1  # l2_error's mass-matrix apply
-    print(f"[4 path A] solve_poisson_const f32: 32^3/3 levels {st.niter} its (CPU plain path "
-          f"{st_cpu.niter} its, x rel diff {e32:.1e}); 128^3/4 levels {stA.niter} its, "
-          f"flag {stA.flag}, L2 error {infoA['l2_error']:.3e}, "
-          f"{secsA:.2f} s incl. setup; K1 launches {k1A} = (n+1)((L-1)(2k+1)+2) "
-          f"= {nA}, K2 launches {k2A} (L2 error), plain launches 0", flush=True)
-
+    launches["B"] = read_counts()
     # setup: one Lanczos run per smoothing level (pre and post share it)
     nB = 3 * lanczos + cg_gmg_applies(stB.niter, 4, deg) + 1
-    assert stB.niter == 6 and int(stB.flag) == 2, (stB.niter, stB.flag)  # CONVERGED_RTOL
-    assert xB.shape == (129 ** 3,) and bool(torch.isfinite(xB).all())
+    assert ITS["B"][0] <= stB.niter <= ITS["B"][1] and int(stB.flag) == 2, (stB.niter, stB.flag)
+    assert xB.shape == (N1 ** 3,) and bool(torch.isfinite(xB).all())
     assert infoB["l2_error"] <= 1e-6, infoB["l2_error"]
-    assert k1B == 0 and k2B == nB, (k1B, k2B, nB)
+    assert launches["B"] == {"K1": 0, "K2": nB, "K3": 0}, (launches["B"], nB)
     print(f"[5 path B] solve_poisson f64 rtol 1e-8: 64^3/4 levels {st64.niter} its "
           f"(L2 {info64['l2_error']:.3e}); 16^3 card = CPU plain path {st16.niter} its, "
-          f"x rel diff {e16:.1e}; 128^3/4 levels {stB.niter} its, flag CONVERGED_RTOL, "
-          f"L2 error {infoB['l2_error']:.3e}, {secsB:.2f} s incl. setup; K2 launches {k2B} = "
-          f"3*{lanczos} Lanczos + (n+1)((L-1)(2k+1)+2) + 1 = {nB}; plain launches 0", flush=True)
+          f"x rel diff {e16:.1e}; {NC}^3/4 levels {stB.niter} its, flag CONVERGED_RTOL, "
+          f"L2 error {infoB['l2_error']:.3e}, {secsB:.2f} s incl. setup; K2 launches "
+          f"{launches['B']['K2']} = 3*{lanczos} Lanczos + (n+1)((L-1)(2k+1)+2) + 1 = {nB}; "
+          f"plain launches 0 {elapsed()}", flush=True)
+    del xB, info64, x16, x16c, x, x_cpu
 
-    # ---- 6 times --------------------------------------------------------
+    # path C: CG + smoothed-aggregation AMG, f32
+    _, _, stateC32, xc, stc, l2c, _ = solve_amg(32, dev)
+    _, _, _, xc_cpu, stc_cpu, _, _ = solve_amg(32, "cpu")
+    assert stc.niter == stc_cpu.niter == 6 and stc.converged(), (stc.niter, stc_cpu.niter)
+    ec = relerr(xc.cpu(), xc_cpu)
+    assert ec <= 1e-4, f"32^3 AMG solve: card vs CPU plain path {ec:.2e}"
+    del stateC32, xc, xc_cpu
+    reset_counts()
+    t0 = time.perf_counter()
+    probC, cgC, stateC, xC, stC, l2C, setupC = solve_amg(NC, dev)
+    torch.cuda.synchronize()
+    secsC = time.perf_counter() - t0
+    launches["C"] = read_counts()
+    amg = stateC["Pl"]
+    L = len(amg["mats"])
+    nC2, nC3 = cg_amg_applies(stC.niter, L, deg, lanczos)
+    assert ITS["C"][0] <= stC.niter <= ITS["C"][1] and int(stC.flag) == 2, (stC.niter, stC.flag)
+    assert xC.shape == (N1 ** 3,) and bool(torch.isfinite(xC).all())
+    assert l2C <= 2e-4, l2C
+    assert launches["C"] == {"K1": 0, "K2": nC2, "K3": nC3}, (launches["C"], nC2, nC3)
+    shapes = [m.shape[0] for m in amg["mats"]]
+    widths = ("/".join(str(m.row_width) for m in amg["mats"][1:]),
+              "/".join(str(m.row_width) for m in amg["P"]),
+              "/".join(str(m.row_width) for m in amg["R"]))
+    print(f"[6 path C] CG + AMGSolver(coarse_size=400) f32 rtol 1e-6: 32^3 card = CPU plain "
+          f"path {stc.niter} its, x rel diff {ec:.1e}, L2 {l2c:.3e}; {NC}^3: {L} levels "
+          f"{shapes}, ELL widths levels 1.. {widths[0]}, P {widths[1]}, R {widths[2]}; "
+          f"{stC.niter} its, flag CONVERGED_RTOL, L2 error {l2C:.3e}; set-up {setupC:.2f} s "
+          f"(host aggregation and Galerkin products, device Lanczos), set-up + solve + L2 "
+          f"{secsC:.2f} s; K2 launches {nC2} = {lanczos} + (n+1)(2k+2) + 1, K3 launches "
+          f"{nC3} = {lanczos}(L-2) + (n+1)((L-2)(2k+1) + 1 + 2(L-1)), K1 0, plain "
+          f"launches 0 {elapsed()}", flush=True)
+
+    # ---- 7 K3 on path C's own operators ---------------------------------
+    ops = ([(f"level {i}", m) for i, m in enumerate(amg["mats"]) if i > 0]
+           + [(f"P{i}", m) for i, m in enumerate(amg["P"])]
+           + [(f"R{i}", m) for i, m in enumerate(amg["R"])])
+    for tag, A in ops:
+        assert isinstance(A, ELLMatrix) and A.dtype == torch.float32, (tag, type(A))
+        x = vec(A.ncols, torch.float32)
+        check_k3(f"{tag} {A.nrows}x{A.ncols} K={A.row_width} f32", A, x, F32_TOL)
+        check_k3(f"{tag} bf16", A.astype(torch.bfloat16), x, F32_TOL)
+    A1 = amg["mats"][1].astype(torch.float64)
+    check_k3("level 1 f64", A1, vec(A1.ncols, torch.float64), F64_TOL)
+    print(f"[7 K3 ops] {len(lines)} cases on path C's {NC}^3 operators within f32 "
+          f"{F32_TOL:.0e} / f64 {F64_TOL:.0e}: " + ", ".join(lines) + f" {elapsed()}",
+          flush=True)
+    del A1
+
+    # ---- 8 times --------------------------------------------------------
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)  # 256 MB > L2
 
     def cold():
         flush.zero_()
 
-    mesh = mesh_of((129,) * 3)
+    mesh = mesh_of((N1,) * 3)
     Ac = laplacian_const(mesh, torch.float32, dev)
     Ab = eliminate_dirichlet(laplacian(mesh, torch.float32, dev), mesh.boundary_vertex_mask())
     A16 = Ab.astype(torch.bfloat16)
@@ -264,45 +458,88 @@ def main() -> None:
     x64 = x.double()
     a1 = (Ac.weights, Ac.free, Ac.offsets, Ac.grid_shape, x)
     per = Ab._periodic()
+    # library yardsticks: cuDNN conv3d with the 27 weights (no mask
+    # pass-through) for K1, cuSPARSE CSR SpMV of the same matrix for K2, K3
+    w3 = torch.zeros((3, 3, 3), dtype=torch.float32, device=dev)
+    for s, off in enumerate(Ac.offsets):
+        w3[tuple(o + 1 for o in off)] = Ac.weights[s]
+    w3 = w3.reshape(1, 1, 3, 3, 3)
+    x5 = x.reshape(1, 1, N1, N1, N1)
+    S_lap = to_scipy(Ab)  # explicit zeros dropped: K = 21
+    csrB = csr_of(S_lap, dev, torch.float32)
     t = {
         "K1": median_ms(lambda: k1.const_stencil_cuda(*a1)),
         "K1 cold L2": median_ms(lambda: k1.const_stencil_cuda(*a1), before=cold),
         "K1 plain": median_ms(lambda: k1.const_stencil_plain(*a1)),
+        "K1 library": median_ms(lambda: torch.nn.functional.conv3d(x5, w3, padding=1)),
         "K2": median_ms(lambda: k2.banded_stencil_cuda(Ab.bands, Ab.offsets, Ab.grid_shape, per, x)),
         "K2 plain": median_ms(lambda: k2.banded_stencil_plain(Ab.bands, Ab.offsets, Ab.grid_shape, per, x)),
+        "K2 library": median_ms(lambda: torch.mv(csrB, x)),
         "K2 bf16": median_ms(lambda: k2.banded_stencil_cuda(A16.bands, A16.offsets, A16.grid_shape, per, x)),
         "K2 bf16 plain": median_ms(lambda: k2.banded_stencil_plain(A16.bands, A16.offsets, A16.grid_shape, per, x)),
         "K2 f64": median_ms(lambda: k2.banded_stencil_cuda(Ab64.bands, Ab64.offsets, Ab64.grid_shape, per, x64)),
         "K2 f64 plain": median_ms(lambda: k2.banded_stencil_plain(Ab64.bands, Ab64.offsets, Ab64.grid_shape, per, x64)),
     }
-    for tag, info, b in (("solve A", infoA, infoA["problem"].b), ("solve B", infoB, infoB["problem"].b)):
+    n = Ac.n
+    bound = {
+        "K1": 3 * 4 * n / HBM_BYTES_PER_S * 1e3,            # x, free read, y written
+        "K2": (27 + 2) * 4 * n / HBM_BYTES_PER_S * 1e3,     # bands, x, y
+        "K2 bf16": (27 * 2 + 2 * 4) * n / HBM_BYTES_PER_S * 1e3,
+        "K2 f64": (27 + 2) * 8 * n / HBM_BYTES_PER_S * 1e3,
+    }
+    Aell = ell_from_scipy(S_lap, device=dev)
+    k3_ops = {"level 1": amg["mats"][1], "P0": amg["P"][0], "R0": amg["R"][0],
+              f"lap {N1}^3": Aell}
+    for tag, A in k3_ops.items():
+        xk = vec(A.ncols, torch.float32)
+        csr = csrB if A is Aell else csr_of(to_scipy(A), dev, A.dtype)
+        t[f"K3 {tag}"] = median_ms(lambda: k3.ell_spmv_cuda(A.values, A.cols, xk, A.ncols))
+        t[f"K3 {tag} plain"] = median_ms(lambda: k3.ell_spmv_plain(A.values, A.cols, xk))
+        t[f"K3 {tag} library"] = median_ms(lambda: torch.mv(csr, xk))
+        bound[f"K3 {tag}"] = ell_bound_ms(A, xk)
+        del csr
+    del csrB, S_lap
+    # lanes per row: K3 at every group size on the same operators
+    sweep = []
+    for tag, A in k3_ops.items():
+        xk = vec(A.ncols, torch.float32)
+        ms = {g: median_ms(lambda: k3.ell_spmv_cuda(A.values, A.cols, xk, A.ncols, g))
+              for g in (1, 2, 4, 8, 16, 32)}
+        sweep.append(f"{tag} K={A.row_width} (default G={k3.group_size(A.row_width)}): "
+                     + " ".join(f"G{g} {v:.4f}" for g, v in ms.items()))
+    for tag, info, b in (("solve A", infoA, infoA["problem"].b),
+                         ("solve B", infoB, infoB["problem"].b)):
         t[tag] = median_ms(lambda: info["solver"].solve(info["state"], b), runs=20, warmup=2,
                            spin=False)
-    n = Ac.n
-    gbs = {
-        "K1": 3 * 4 * n / (t["K1"] * 1e6),            # x, free read, y written
-        "K2": (27 * 4 + 2 * 4) * n / (t["K2"] * 1e6),  # bands, x, y
-        "K2 bf16": (27 * 2 + 2 * 4) * n / (t["K2 bf16"] * 1e6),
-        "K2 f64": (27 + 2) * 8 * n / (t["K2 f64"] * 1e6),
-    }
-    print(f"[6 times] {card} | 129^3 f32, median of {TIMING_RUNS} (CUDA events), ms per apply: "
+    t["solve C"] = median_ms(lambda: cgC.solve(stateC, probC.b), runs=20, warmup=2, spin=False)
+    print(f"[8 times] {card} | {N1}^3 stencils f32 unless said, K3 on path C's f32 operators; "
+          f"median of {TIMING_RUNS} (CUDA events), ms per apply: "
           + ", ".join(f"{k} {v:.4f}" for k, v in t.items() if not k.startswith("solve"))
-          + " | effective GB/s (bytes the algorithm needs / time): "
-          + ", ".join(f"{k} {v:.0f}" for k, v in gbs.items())
-          + f" | 128^3 solve only, median of 20: A (const f32, {stA.niter} its) {t['solve A']:.2f} ms"
-          f", B (banded f64, {stB.niter} its) {t['solve B']:.2f} ms", flush=True)
+          + " | bound ms (bytes / 3.35 TB/s): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in bound.items())
+          + f" | {NC}^3 solve only, median of 20: A (const f32, {stA.niter} its) "
+          f"{t['solve A']:.2f} ms, B (banded f64, {stB.niter} its) {t['solve B']:.2f} ms, "
+          f"C (AMG f32, {stC.niter} its) {t['solve C']:.2f} ms {elapsed()}", flush=True)
+    print(f"[8 K3 lanes per row] {card} | ms per apply by group size G: " + "; ".join(sweep),
+          flush=True)
+    if opts.profile is not None:
+        summary = profile_solve(lambda: cgC.solve(stateC, probC.b), opts.profile)
+        print(f"[profile] path C solve, {card}: {summary} {elapsed()}", flush=True)
+
+    def row(key, name, source, replaces, shape_key):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(launches[p][key] for p in launches),
+                "max_abs_err": worst[key], "ms": t[shape_key],
+                "plain_ms": t[f"{shape_key} plain"], "bound_ms": bound[shape_key],
+                "bound_by": "bytes", "library_ms": t[f"{shape_key} library"]}
 
     summary = {"kernels": [
-        {"name": "K1 const_stencil", "route": "cuda",
-         "source": "gridapsolvers_tpu_torch/csrc/const_stencil.cu",
-         "replaces": "gridapsolvers_tpu/ops/stencil_pallas.py:61",
-         "launches": launches["K1"], "max_abs_err": worst["K1"],
-         "ms": t["K1"], "plain_ms": t["K1 plain"]},
-        {"name": "K2 banded_stencil", "route": "cuda",
-         "source": "gridapsolvers_tpu_torch/csrc/banded_stencil.cu",
-         "replaces": "gridapsolvers_tpu/ops/banded_pallas.py:64",
-         "launches": launches["K2"], "max_abs_err": worst["K2"],
-         "ms": t["K2"], "plain_ms": t["K2 plain"]},
+        row("K1", "K1 const_stencil", "gridapsolvers_tpu_torch/csrc/const_stencil.cu",
+            "gridapsolvers_tpu/ops/stencil_pallas.py:61", "K1"),
+        row("K2", "K2 banded_stencil", "gridapsolvers_tpu_torch/csrc/banded_stencil.cu",
+            "gridapsolvers_tpu/ops/banded_pallas.py:64", "K2"),
+        row("K3", "K3 ell_spmv", "gridapsolvers_tpu_torch/csrc/ell_spmv.cu",
+            "gridapsolvers_tpu/ops/ell_pallas.py:113", "K3 level 1"),
     ]}
     print(json.dumps(summary))
     torch.cuda.synchronize()

@@ -4,3 +4,5 @@ from .stencil import (  # noqa: F401
     shift,
     stencil_from_scipy,
 )
+from .ell import ELLMatrix, ell_from_coo, ell_from_scipy, ell_to_scipy  # noqa: F401
+from .convert import to_scipy  # noqa: F401

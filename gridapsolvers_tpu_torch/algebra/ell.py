@@ -1,0 +1,176 @@
+"""ELL (padded fixed-width) sparse matrices: general sparsity.
+
+Port of `gridapsolvers_tpu/algebra/ell.py`. Every row is padded to a
+fixed width K:
+
+    values : (n_rows, K) tensor, zero-padded
+    cols   : (n_rows, K) int32, padding points at min(row, ncols - 1)
+
+and SpMV is `(values * x[cols]).sum(1)`. `ELLMatrix.matvec` runs kernel
+K3 (`ops/ell_spmv.py`) on CUDA tensors and its plain PyTorch version on
+CPU tensors; any column pattern, square or rectangular, takes the kernel.
+The host conversions (`ell_from_coo`, `ell_from_scipy`, `ell_to_scipy`)
+build the same arrays as the JAX package's, bit for bit.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.ell_spmv import ell_spmv_apply
+from ..utils import resolve_device
+
+
+@dataclasses.dataclass
+class ELLMatrix:
+    """Square-or-rectangular sparse matrix in padded ELL format."""
+
+    values: torch.Tensor  # (n_rows, K)
+    cols: torch.Tensor    # (n_rows, K) int32
+    ncols: int
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.values.shape[0], self.ncols)
+
+    @property
+    def nrows(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def row_width(self) -> int:
+        return self.values.shape[1]
+
+    @property
+    def nnz(self) -> int:
+        """Stored slots, padding included."""
+        return self.values.shape[0] * self.values.shape[1]
+
+    @property
+    def dtype(self):
+        return self.values.dtype
+
+    @property
+    def device(self):
+        return self.values.device
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """y = A @ x. x: (ncols,) -> y: (nrows,)."""
+        return ell_spmv_apply(self.values, self.cols, self.ncols, x)
+
+    def matvec_t(self, y: torch.Tensor) -> torch.Tensor:
+        """x = A.T @ y by scatter-add."""
+        contrib = (self.values.to(y.dtype) * y[:, None]).reshape(-1)
+        out = torch.zeros(self.ncols, dtype=y.dtype, device=y.device)
+        return out.index_add_(0, self.cols.reshape(-1).long(), contrib)
+
+    def diag(self) -> torch.Tensor:
+        """Diagonal (square A)."""
+        rows = torch.arange(self.nrows, device=self.device)[:, None]
+        return torch.where(self.cols == rows, self.values, 0.0).sum(dim=1)
+
+    def abs_row_sum(self) -> torch.Tensor:
+        """sum_j |a_ij| per row (Gershgorin bounds)."""
+        return torch.abs(self.values).sum(dim=1)
+
+    def scale_rows(self, d: torch.Tensor) -> "ELLMatrix":
+        return ELLMatrix(self.values * d[:, None], self.cols, self.ncols)
+
+    def astype(self, dtype) -> "ELLMatrix":
+        return ELLMatrix(self.values.to(dtype), self.cols, self.ncols)
+
+    def todense(self) -> torch.Tensor:
+        """Dense (nrows, ncols) matrix (coarse solves, checks); duplicate
+        columns in a row are summed."""
+        n, K = self.values.shape
+        dense = torch.zeros((n, self.ncols), dtype=self.dtype, device=self.device)
+        rows = torch.arange(n, device=self.device).repeat_interleave(K)
+        return dense.index_put_(
+            (rows, self.cols.reshape(-1).long()), self.values.reshape(-1), accumulate=True
+        )
+
+
+def _ell(vals: np.ndarray, cols: np.ndarray, n_cols: int, dtype, device) -> ELLMatrix:
+    dev = resolve_device(device)
+    v = torch.from_numpy(vals)
+    return ELLMatrix(v.to(device=dev, dtype=dtype or v.dtype), torch.from_numpy(cols).to(dev),
+                     int(n_cols))
+
+
+def _padding_cols(n_rows: int, n_cols: int, K: int) -> np.ndarray:
+    """Column of every padding slot: min(row, ncols - 1)."""
+    return np.tile(np.minimum(np.arange(n_rows), n_cols - 1)[:, None], (1, K)).astype(np.int32)
+
+
+def ell_from_coo(
+    n_rows: int,
+    n_cols: int,
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    row_width: Optional[int] = None,
+    dtype=None,
+    device=None,
+) -> ELLMatrix:
+    """Host COO -> ELL (duplicates summed); `dtype` is a torch dtype
+    (default: the values' own)."""
+    rows = np.asarray(rows)
+    cols = np.asarray(cols)
+    vals = np.asarray(vals)
+    # sum duplicates via lexicographic sort + segment reduce
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    key = rows.astype(np.int64) * n_cols + cols.astype(np.int64)
+    uniq, inv = np.unique(key, return_inverse=True)
+    summed = np.zeros(len(uniq), dtype=vals.dtype)
+    np.add.at(summed, inv, vals)
+    urows = (uniq // n_cols).astype(np.int64)
+    ucols = (uniq % n_cols).astype(np.int64)
+
+    counts = np.bincount(urows, minlength=n_rows)
+    K = int(counts.max()) if row_width is None else int(row_width)
+    if counts.max() > K:
+        raise ValueError(f"row degree {counts.max()} exceeds row_width {K}")
+
+    ell_vals = np.zeros((n_rows, K), dtype=vals.dtype)
+    ell_cols = _padding_cols(n_rows, n_cols, K)
+    # position of each entry within its row
+    starts = np.zeros(n_rows + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    slot = np.arange(len(urows)) - starts[urows]
+    ell_vals[urows, slot] = summed
+    ell_cols[urows, slot] = ucols.astype(np.int32)
+    return _ell(ell_vals, ell_cols, n_cols, dtype, device)
+
+
+def ell_from_scipy(S, row_width: Optional[int] = None, dtype=None, device=None) -> ELLMatrix:
+    """scipy.sparse -> padded ELL (host set-up path); `dtype` is a torch
+    dtype (default: the matrix's own)."""
+    S = S.tocsr()
+    S.sum_duplicates()
+    n_rows, n_cols = S.shape
+    counts = np.diff(S.indptr)
+    K = int(counts.max()) if row_width is None else int(row_width)
+    if counts.max() > K:
+        raise ValueError(f"row degree {counts.max()} exceeds row_width {K}")
+    vals = np.zeros((n_rows, K), dtype=S.dtype)
+    cols = _padding_cols(n_rows, n_cols, K)
+    r = np.repeat(np.arange(n_rows), counts)
+    slot = np.arange(S.nnz) - np.repeat(S.indptr[:-1], counts)
+    vals[r, slot] = S.data
+    cols[r, slot] = S.indices.astype(np.int32)
+    return _ell(vals, cols, n_cols, dtype, device)
+
+
+def ell_to_scipy(A: ELLMatrix):
+    """ELLMatrix -> scipy CSR (host; padding slots add explicit zeros)."""
+    import scipy.sparse as sp
+
+    n, K = A.values.shape
+    vals = A.values.detach().cpu().numpy().reshape(-1)
+    cols = A.cols.cpu().numpy().reshape(-1)
+    rows = np.repeat(np.arange(n), K)
+    return sp.coo_matrix((vals, (rows, cols)), shape=A.shape).tocsr()

@@ -124,6 +124,32 @@ class StencilMatrix:
             self.bands.to(dtype), self.offsets, self.grid_shape, self.periodic
         )
 
+    def to_ell(self, device=None):
+        """ELLMatrix of the same operator on `device` (default: the bands'
+        device), converted on the host (AMG set-up, checks). Zero band
+        entries are dropped, periodic axes wrap, and the row width is the
+        number of offsets."""
+        from .ell import ell_from_coo
+
+        bands = self.bands.cpu().numpy()
+        gs = self.grid_shape
+        n = self.n
+        idx = np.arange(n).reshape(gs)
+        per = self._periodic()
+        rows_all, cols_all, vals_all = [], [], []
+        for s, off in enumerate(self.offsets):
+            valid, nb = _neighbour_index(gs, off, per)
+            v = bands[s].reshape(-1)
+            m = valid & (v != 0)
+            rows_all.append(idx.reshape(-1)[m])
+            cols_all.append(nb[m])
+            vals_all.append(v[m])
+        return ell_from_coo(
+            n, n, np.concatenate(rows_all), np.concatenate(cols_all),
+            np.concatenate(vals_all), row_width=len(self.offsets),
+            device=self.device if device is None else device,
+        )
+
     def todense(self) -> torch.Tensor:
         """Dense (n, n) matrix on the bands' device, built straight from the
         bands (coarse solves, checks). Duplicate entries, from periodic
@@ -142,7 +168,7 @@ class StencilMatrix:
 
 
 def stencil_from_scipy(
-    S, grid_shape, periodic=None, dtype=None, device="cpu"
+    S, grid_shape, periodic=None, dtype=None, device=None
 ) -> StencilMatrix:
     """Host-side scipy sparse -> banded StencilMatrix on a dof grid.
 

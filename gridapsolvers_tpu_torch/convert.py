@@ -12,6 +12,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .algebra.ell import ELLMatrix
 from .algebra.stencil import ConstStencilMatrix, StencilMatrix
 from .fem.mesh import CartesianMesh
 from .fem.poisson import PoissonProblem
@@ -36,7 +37,7 @@ def stencil_matrix(
     grid_shape: Sequence[int],
     periodic: Optional[Sequence[bool]] = None,
     *,
-    device="cpu",
+    device=None,
     dtype=None,
 ) -> StencilMatrix:
     """`StencilMatrix` from (bands, offsets, grid_shape, periodic)."""
@@ -54,7 +55,7 @@ def const_stencil_matrix(
     offsets: Sequence[Sequence[int]],
     grid_shape: Sequence[int],
     *,
-    device="cpu",
+    device=None,
     dtype=None,
 ) -> ConstStencilMatrix:
     """`ConstStencilMatrix` from (weights, free, offsets, grid_shape)."""
@@ -67,9 +68,66 @@ def const_stencil_matrix(
     )
 
 
+def ell_matrix(
+    values: np.ndarray,
+    cols: np.ndarray,
+    ncols: int,
+    *,
+    device=None,
+    dtype=None,
+) -> ELLMatrix:
+    """`ELLMatrix` from (values, cols, ncols); columns become int32."""
+    return ELLMatrix(
+        _tensor(values, device, dtype),
+        _tensor(np.asarray(cols, dtype=np.int32), device),
+        int(ncols),
+    )
+
+
+def _operator(spec: dict, device, dtype):
+    """An AMG level operator or transfer from its numpy fields: ELL
+    {"values", "cols", "ncols"} or stencil {"bands", "offsets",
+    "grid_shape", "periodic"}."""
+    if "values" in spec:
+        return ell_matrix(spec["values"], spec["cols"], spec["ncols"], device=device, dtype=dtype)
+    return stencil_matrix(spec["bands"], spec["offsets"], spec["grid_shape"],
+                          spec.get("periodic"), device=device, dtype=dtype)
+
+
+def amg_state(
+    mats: Sequence[dict],
+    P: Sequence[dict],
+    R: Sequence[dict],
+    lmax: Sequence[float],
+    lmin: Sequence[float],
+    coarse_inv: np.ndarray,
+    *,
+    device=None,
+    dtype=None,
+) -> dict:
+    """The state of an `AMGSolver` with the default Chebyshev smoother from
+    a JAX AMG state's parts: its level operators, prolongations and
+    restrictions (each a dict for `_operator`), the smoothers' spectral
+    bounds of levels 0..L-2, and the coarsest level's dense inverse. The
+    smoothers' inverse diagonals are taken from the carried operators,
+    as the JAX smoother takes them (1 / diag, exact)."""
+    mats = [_operator(m, device, dtype) for m in mats]
+    sm = [
+        {"A": A, "inv_diag": 1.0 / A.diag(), "lmax": float(hi), "lmin": float(lo)}
+        for A, hi, lo in zip(mats[:-1], lmax, lmin)
+    ]
+    return {
+        "mats": mats,
+        "P": [_operator(p, device, dtype) for p in P],
+        "R": [_operator(r, device, dtype) for r in R],
+        "sm": sm,
+        "coarse": {"inv": _tensor(coarse_inv, device, dtype)},
+    }
+
+
 def prolongation(
     fine_shape, coarse_shape, mask_fine=None, factors=None, periodic=None,
-    *, device="cpu", dtype=None,
+    *, device=None, dtype=None,
 ) -> StructuredProlongation:
     """`StructuredProlongation` from the JAX one's fields and mask."""
     return StructuredProlongation(
@@ -81,7 +139,7 @@ def prolongation(
 
 def restriction(
     fine_shape, coarse_shape, mode="residual", mask_coarse=None, mask_fine=None,
-    factors=None, periodic=None, *, device="cpu", dtype=None,
+    factors=None, periodic=None, *, device=None, dtype=None,
 ) -> StructuredRestriction:
     """`StructuredRestriction` from the JAX one's fields and masks."""
     return StructuredRestriction(
@@ -101,7 +159,7 @@ def poisson_problem(
     u_exact: np.ndarray,
     dirichlet_mask: np.ndarray,
     *,
-    device="cpu",
+    device=None,
     dtype=None,
 ) -> PoissonProblem:
     """`PoissonProblem` from converted operators and the JAX problem's

@@ -118,25 +118,25 @@ def assemble_q1_stencil(
     mesh: CartesianMesh,
     element_matrix: np.ndarray,
     dtype=torch.float64,
-    device="cpu",
+    device=None,
 ) -> StencilMatrix:
     """Assemble a Q1 operator band-wise from a (2^d, 2^d) element matrix."""
     bands = q1_bands_host(mesh, element_matrix, numpy_dtype(dtype))
     return q1_stencil(mesh, bands, dtype, device)
 
 
-def laplacian(mesh: CartesianMesh, dtype=torch.float64, device="cpu") -> StencilMatrix:
+def laplacian(mesh: CartesianMesh, dtype=torch.float64, device=None) -> StencilMatrix:
     Ke, _ = q1_element_matrices(mesh.h)
     return assemble_q1_stencil(mesh, Ke, dtype, device)
 
 
-def mass(mesh: CartesianMesh, dtype=torch.float64, device="cpu") -> StencilMatrix:
+def mass(mesh: CartesianMesh, dtype=torch.float64, device=None) -> StencilMatrix:
     _, Me = q1_element_matrices(mesh.h)
     return assemble_q1_stencil(mesh, Me, dtype, device)
 
 
 def laplacian_const(
-    mesh: CartesianMesh, dtype=torch.float64, device="cpu"
+    mesh: CartesianMesh, dtype=torch.float64, device=None
 ) -> ConstStencilMatrix:
     """Dirichlet-eliminated Q1 Laplacian as a matrix-free constant stencil
     (exact for full-boundary Dirichlet on a uniform mesh; see

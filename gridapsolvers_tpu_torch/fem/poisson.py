@@ -85,7 +85,7 @@ def poisson_problem(
     domain: Optional[Tuple[float, ...]] = None,
     exact: str = "linear",
     dtype=torch.float64,
-    device="cpu",
+    device=None,
 ) -> PoissonProblem:
     """Build the full Dirichlet Poisson system with manufactured solution."""
     dev = resolve_device(device)

@@ -8,3 +8,4 @@ from .smoothers import (  # noqa: F401
     gershgorin_dinv_a_lmax,
 )
 from .gmg import GMGSolver, gmg_from_hierarchy  # noqa: F401
+from .amg import AMGSolver  # noqa: F401

@@ -194,7 +194,7 @@ def gmg_from_hierarchy(
     cycle: str = "v",
     mode: str = "preconditioner",
     dtype=torch.float64,
-    device="cpu",
+    device=None,
     **kw,
 ) -> GMGSolver:
     """Geometric GMG on a structured-grid hierarchy with rediscretized

@@ -26,7 +26,7 @@ def solve_poisson(
     cycle: str = "v",
     exact: str = "linear",
     dtype=torch.float64,
-    device="cpu",
+    device=None,
 ):
     """Banded operators on every level (kernel K2), Chebyshev(3) smoothing
     with a Lanczos λmax, explicit-inverse coarse solve, CG to `rtol`.
@@ -69,7 +69,7 @@ def _info(prob, x, solver, state):
 def solve_poisson_const(
     ncells: Tuple[int, ...],
     num_levels: int,
-    device="cpu",
+    device=None,
     dtype=torch.float32,
 ):
     """The flagship configuration: matrix-free constant stencils on every

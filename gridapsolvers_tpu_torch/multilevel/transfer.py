@@ -147,7 +147,7 @@ class StructuredRestriction:
         return (int(np.prod(self.coarse_shape)), int(np.prod(self.fine_shape)))
 
 
-def free_mask(mesh: CartesianMesh, dtype=torch.float64, device="cpu") -> torch.Tensor:
+def free_mask(mesh: CartesianMesh, dtype=torch.float64, device=None) -> torch.Tensor:
     """{0,1} flat mask of free (non-Dirichlet-boundary) vertex dofs."""
     m = (~mesh.boundary_vertex_mask()).astype(np.float64).reshape(-1)
     return torch.from_numpy(m).to(device=resolve_device(device), dtype=dtype)
@@ -157,7 +157,7 @@ def setup_transfer_operators(
     hierarchy,
     with_masks: bool = True,
     dtype=torch.float64,
-    device="cpu",
+    device=None,
 ):
     """Build (prolongations, restrictions) for all level pairs
     (reference GridTransferOperators.jl:350-380 setup_transfer_operators).

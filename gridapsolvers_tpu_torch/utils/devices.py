@@ -1,6 +1,7 @@
-"""Explicit device and dtype resolution for the port's constructors.
+"""Device and dtype resolution for the port's constructors.
 
-A constructor is told where its tensors live. Asking for a CUDA device on a
+A constructor runs on the card unless the caller asks for the CPU: its
+`device=None` default resolves to "cuda". Asking for a CUDA device on a
 machine without one raises: nothing moves work to the CPU on its own.
 """
 from __future__ import annotations
@@ -14,11 +15,13 @@ _NUMPY_DTYPES = {
 }
 
 
-def resolve_device(device) -> torch.device:
-    dev = torch.device(device)
+def resolve_device(device=None) -> torch.device:
+    """`device`, or "cuda" when it is None; raises if that is CUDA and
+    there is none."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
+            f"device {str(dev)!r} requested but torch.cuda.is_available() is "
             "False"
         )
     return dev

@@ -47,7 +47,7 @@ def _eq(t, a):
 @pytest.mark.parametrize("ncells", [(8, 8, 8), (12, 10), (6, 5, 7)])
 def test_poisson_problem_bit_equal(ncells):
     jp = j_poisson_problem(ncells)
-    p = poisson_problem(ncells)
+    p = poisson_problem(ncells, device="cpu")
     assert p.mesh == CartesianMesh(tuple(ncells), jp.mesh.domain)
     for ours, theirs in ((p.A, jp.A), (p.A_full, jp.A_full), (p.M, jp.M)):
         assert ours.offsets == theirs.offsets
@@ -61,14 +61,14 @@ def test_poisson_problem_bit_equal(ncells):
 
 def test_poisson_problem_trig_bit_equal():
     jp = j_poisson_problem((8, 6), exact="trig")
-    p = poisson_problem((8, 6), exact="trig")
+    p = poisson_problem((8, 6), exact="trig", device="cpu")
     _eq(p.b, jp.b)
     _eq(p.u_exact, jp.u_exact)
 
 
 def test_problem_errors_match_jax():
     jp = j_poisson_problem((6, 6, 6))
-    p = poisson_problem((6, 6, 6))
+    p = poisson_problem((6, 6, 6), device="cpu")
     u = np.random.default_rng(0).normal(size=p.n)
     np.testing.assert_allclose(
         float(p.l2_error(torch.from_numpy(u))), float(jp.l2_error(jnp.asarray(u))),
@@ -85,14 +85,14 @@ def test_problem_errors_match_jax():
 def test_laplacian_const_bit_equal(ncells):
     jm = JMesh(ncells, tuple(x for _ in ncells for x in (0.0, 1.0)))
     Aj = j_laplacian_const(jm)
-    A = laplacian_const(CartesianMesh(jm.ncells, jm.domain))
+    A = laplacian_const(CartesianMesh(jm.ncells, jm.domain), device="cpu")
     assert A.offsets == Aj.offsets and A.grid_shape == Aj.grid_shape
     _eq(A.weights, Aj.weights)
     _eq(A.free, Aj.free)
 
 
 def test_laplacian_const_f32_dtype():
-    A = laplacian_const(CartesianMesh((4, 4, 4), (0, 1) * 3), torch.float32)
+    A = laplacian_const(CartesianMesh((4, 4, 4), (0, 1) * 3), torch.float32, "cpu")
     assert A.weights.dtype == A.free.dtype == torch.float32
 
 
@@ -102,11 +102,11 @@ def test_periodic_assembly_and_elimination_bit_equal(periodic):
     domain = tuple(x for _ in ncells for x in (0.0, 1.0))
     jm = JMesh(ncells, domain, periodic)
     m = CartesianMesh(ncells, domain, periodic)
-    for ours, theirs in ((laplacian(m), j_laplacian(jm)), (mass(m), j_mass(jm))):
+    for ours, theirs in ((laplacian(m, device="cpu"), j_laplacian(jm)), (mass(m, device="cpu"), j_mass(jm))):
         assert ours.periodic == theirs.periodic
         _eq(ours.bands, theirs.bands)
     mask = jm.boundary_vertex_mask()
-    _eq(eliminate_dirichlet(laplacian(m), mask).bands, j_eliminate(j_laplacian(jm), mask).bands)
+    _eq(eliminate_dirichlet(laplacian(m, device="cpu"), mask).bands, j_eliminate(j_laplacian(jm), mask).bands)
 
 
 def test_dirichlet_rhs_matches_jax():
@@ -115,7 +115,7 @@ def test_dirichlet_rhs_matches_jax():
     rng = np.random.default_rng(1)
     b, g = rng.normal(size=(2, jm.num_vertices))
     mask = jm.boundary_vertex_mask()
-    ours = dirichlet_rhs(laplacian(m), torch.from_numpy(b), mask, torch.from_numpy(g))
+    ours = dirichlet_rhs(laplacian(m, device="cpu"), torch.from_numpy(b), mask, torch.from_numpy(g))
     theirs = j_dirichlet_rhs(j_laplacian(jm), jnp.asarray(b), mask, jnp.asarray(g))
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-14, atol=1e-14)
 
@@ -123,11 +123,11 @@ def test_dirichlet_rhs_matches_jax():
 def test_todense_matches_jax():
     jm = JMesh((4, 5), (0.0, 1.0, 0.0, 1.0))
     m = CartesianMesh(jm.ncells, jm.domain)
-    Ab = eliminate_dirichlet(laplacian(m), jm.boundary_vertex_mask())
+    Ab = eliminate_dirichlet(laplacian(m, device="cpu"), jm.boundary_vertex_mask())
     _eq(Ab.todense(), j_eliminate(j_laplacian(jm), jm.boundary_vertex_mask()).todense())
-    _eq(laplacian_const(m).todense(), j_laplacian_const(jm).todense())
+    _eq(laplacian_const(m, device="cpu").todense(), j_laplacian_const(jm).todense())
     jp = JMesh((4, 3), (0.0, 1.0, 0.0, 1.0), (True, False))
-    _eq(laplacian(CartesianMesh(jp.ncells, jp.domain, jp.periodic)).todense(),
+    _eq(laplacian(CartesianMesh(jp.ncells, jp.domain, jp.periodic), device="cpu").todense(),
         j_laplacian(jp).todense())
 
 
@@ -155,14 +155,15 @@ def test_transfers_match_jax(ncells, kw):
     """Prolongation and residual restriction, the port's own and the JAX
     ones carried across by convert, against the JAX matvecs."""
     jP, jR = j_transfers(j_hierarchy(ncells, 2, **kw))
-    P, R = setup_transfer_operators(cartesian_hierarchy(ncells, 2, **kw))
+    P, R = setup_transfer_operators(cartesian_hierarchy(ncells, 2, **kw), device="cpu")
     jP, jR, P, R = jP[0], jR[0], P[0], R[0]
     cP = convert.prolongation(
-        jP.fine_shape, jP.coarse_shape, np.asarray(jP.mask_fine), jP.factors, jP.periodic
+        jP.fine_shape, jP.coarse_shape, np.asarray(jP.mask_fine), jP.factors, jP.periodic,
+        device="cpu",
     )
     cR = convert.restriction(
         jR.fine_shape, jR.coarse_shape, jR.mode, np.asarray(jR.mask_coarse),
-        np.asarray(jR.mask_fine), jR.factors, jR.periodic,
+        np.asarray(jR.mask_fine), jR.factors, jR.periodic, device="cpu",
     )
     assert P.shape == jP.shape and R.shape == jR.shape
     _eq(P.mask_fine, jP.mask_fine)
@@ -181,7 +182,7 @@ def test_transfers_match_jax(ncells, kw):
 
 
 def test_restriction_is_prolongation_transpose():
-    P, R = setup_transfer_operators(cartesian_hierarchy((6, 4), 2), with_masks=False)
+    P, R = setup_transfer_operators(cartesian_hierarchy((6, 4), 2), with_masks=False, device="cpu")
     eye_c = torch.eye(P[0].shape[1], dtype=torch.float64)
     eye_f = torch.eye(P[0].shape[0], dtype=torch.float64)
     Pm = torch.stack([P[0].matvec(e) for e in eye_c], dim=1)

@@ -59,21 +59,24 @@ def _conv(op):
     """Any JAX main-path operator -> the port's, via convert."""
     if hasattr(op, "weights"):
         return convert.const_stencil_matrix(
-            np.asarray(op.weights), np.asarray(op.free), op.offsets, op.grid_shape
+            np.asarray(op.weights), np.asarray(op.free), op.offsets, op.grid_shape,
+            device="cpu",
         )
-    return convert.stencil_matrix(np.asarray(op.bands), op.offsets, op.grid_shape, op.periodic)
+    return convert.stencil_matrix(np.asarray(op.bands), op.offsets, op.grid_shape, op.periodic,
+                                   device="cpu")
 
 
 def _conv_gmg(jgmg, **kw):
     """The JAX GMG's level operators and transfers, in a port GMGSolver."""
     P = tuple(
         convert.prolongation(p.fine_shape, p.coarse_shape, np.asarray(p.mask_fine),
-                             p.factors, p.periodic)
+                             p.factors, p.periodic, device="cpu")
         for p in jgmg.prolongations
     )
     R = tuple(
         convert.restriction(r.fine_shape, r.coarse_shape, r.mode, np.asarray(r.mask_coarse),
-                            np.asarray(r.mask_fine), r.factors, r.periodic)
+                            np.asarray(r.mask_fine), r.factors, r.periodic,
+                            device="cpu")
         for r in jgmg.restrictions
     )
     return GMGSolver(coarse_ops=tuple(_conv(op) for op in jgmg.coarse_ops),
@@ -83,7 +86,7 @@ def _conv_gmg(jgmg, **kw):
 def _conv_problem(jp):
     return convert.poisson_problem(
         jp.mesh, _conv(jp.A), _conv(jp.A_full), _conv(jp.M),
-        np.asarray(jp.b), np.asarray(jp.u_exact), jp.dirichlet_mask,
+        np.asarray(jp.b), np.asarray(jp.u_exact), jp.dirichlet_mask, device="cpu",
     )
 
 
@@ -127,7 +130,7 @@ def test_solve_poisson_matches_jax():
     explicit-inverse coarse solve; port constructors and converted operators."""
     jx, jstats, jinfo = j_solve_poisson((16, 16, 16), num_levels=3, rtol=1e-8)
     assert int(jstats.niter) == 7
-    x, stats, info = solve_poisson((16, 16, 16), num_levels=3, rtol=1e-8)
+    x, stats, info = solve_poisson((16, 16, 16), num_levels=3, rtol=1e-8, device="cpu")
     _assert_same_solve(x, stats, jx, jstats)
     assert stats.flag == ConvergenceFlag.CONVERGED_RTOL
     np.testing.assert_allclose(info["l2_error"], jinfo["l2_error"], rtol=1e-6)
@@ -258,7 +261,7 @@ def test_convergence_log_and_verbose_cg_match_jax(capsys):
     assert ours.count("\n") == 4 and ours.startswith("  cg: starting")
 
     capsys.readouterr()
-    prob = poisson_problem((8, 8))
+    prob = poisson_problem((8, 8), device="cpu")
     cg = CGSolver(rtol=1e-6, maxiter=50, verbose=True, name="innerCG", depth=1)
     _, st = cg.solve(cg.setup(prob.A), prob.b)
     lines = capsys.readouterr().out.splitlines()

@@ -47,13 +47,14 @@ def _assert_close(y, y_ref, rtol):
 
 def _port_const(Ac):
     return convert.const_stencil_matrix(
-        np.asarray(Ac.weights), np.asarray(Ac.free), Ac.offsets, Ac.grid_shape
+        np.asarray(Ac.weights), np.asarray(Ac.free), Ac.offsets, Ac.grid_shape,
+        device="cpu",
     )
 
 
 def _port_banded(A, dtype=None):
     return convert.stencil_matrix(
-        np.asarray(A.bands), A.offsets, A.grid_shape, A.periodic, dtype=dtype
+        np.asarray(A.bands), A.offsets, A.grid_shape, A.periodic, device="cpu", dtype=dtype
     )
 
 
@@ -155,7 +156,7 @@ def test_banded_stencil_plain_bf16_bands(ncells):
     # the JAX bf16 bands, widened exactly to f32, then narrowed exactly back
     P = convert.stencil_matrix(
         np.asarray(A16.bands).astype(np.float32), A.offsets, A.grid_shape,
-        dtype=torch.bfloat16,
+        device="cpu", dtype=torch.bfloat16,
     )
     assert P.bands.dtype == torch.bfloat16
     np.testing.assert_array_equal(
@@ -196,7 +197,7 @@ def test_banded_stencil_plain_5d_offsets_from_scipy(gs):
     S = _q2_like_scipy(gs, seed=5)
     Aj = j_from_scipy(S, gs)
     assert len(Aj.offsets) == 5 ** len(gs)
-    P_own = stencil_from_scipy(S, gs)
+    P_own = stencil_from_scipy(S, gs, device="cpu")
     assert P_own.offsets == Aj.offsets
     np.testing.assert_array_equal(P_own.bands.numpy(), np.asarray(Aj.bands))
     x = np.random.default_rng(6).normal(size=Aj.n)
