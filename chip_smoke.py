@@ -11,19 +11,22 @@ through their public entry points, in phases that each print one line:
 
   1 device   card name and power limit (nvidia-smi), TF32 off
   2 build    the kernels, with build seconds and ptxas register counts
-  3 kernels  K1, K2 and K3 against their plain PyTorch versions on the card
+  3 kernels  K1, K2 (its box and general kernels) and K3 (with and without
+             row lengths) against their plain PyTorch versions on the card
   4 path A   solve_poisson_const (constant stencils, K1), f32, 32^3 and 128^3
   5 path B   solve_poisson (banded stencils, K2), f64, 64^3 and 128^3
   6 path C   CG + smoothed-aggregation AMG (K2 finest level, K3 below and
              for every transfer), f32, 32^3 and 128^3
   7 K3 ops   K3 on path C's own 128^3 level operators, P and R (f32, bf16
              values, one f64 level) against its plain version
-  8 times    per-apply kernel, plain, library and bound times, and each
-             128^3 solve
+  8 times    per-apply kernel, plain, library and bound times (K2 box
+             against general, K3 with each operator's fill, read to row
+             lengths and in full), K3's lanes sweep, and each 128^3 solve
 
 Each path's 128^3 run starts with every launch count at 0 and is read
 right after, so the counts show that every operator apply went through
-the kernels. Any failed check raises, so a failure exits non-zero. The
+the kernels, and every K2 launch through its box kernel. Any failed check
+raises, so a failure exits non-zero. The
 line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
 printing any result. `--profile DIR` adds a torch.profiler trace of one
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -82,9 +86,12 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Kernel launches by kernel; raises if any plain version ran."""
+    """Kernel launches by kernel; raises if any plain version ran or a K2
+    launch took the general kernel."""
     plain = {k: c.plain for k, c in COUNTS.items() if c.plain}
     assert not plain, f"plain versions ran on the main path: {plain}"
+    assert k2.counts.box == k2.counts.kernel, (
+        f"K2 general kernel on the main path: {k2.counts.kernel - k2.counts.box} launches")
     return {k: c.kernel for k, c in COUNTS.items()}
 
 
@@ -152,21 +159,50 @@ def build_all() -> str:
     return " | ".join(parts)
 
 
-def csr_of(S, dev, dtype) -> torch.Tensor:
+def csr_of(S, dev, dtype, index=torch.int32) -> torch.Tensor:
     """A scipy matrix as a torch CSR tensor on the card: the cuSPARSE
-    yardstick, never called by the port."""
+    yardstick, never called by the port. int32 indices (the width K3
+    reads, and the faster call) are the library time; int64 ones, the
+    yardstick of earlier runs, are timed beside them."""
     values = torch.from_numpy(S.data).to(dev, dtype)
     return torch.sparse_csr_tensor(
-        torch.from_numpy(S.indptr).to(dev, torch.int64),
-        torch.from_numpy(S.indices).to(dev, torch.int64), values, size=S.shape,
+        torch.from_numpy(S.indptr).to(dev, index),
+        torch.from_numpy(S.indices).to(dev, index), values, size=S.shape,
         check_invariants=False,
     )
 
 
+def ell_fill(A: ELLMatrix) -> tuple:
+    """(real entries, their share of the stored slots, their share of the
+    slots that K3's warps step through at A's lanes a row: rows that share
+    a warp run as long as its longest row)."""
+    rl = A.row_len.cpu().numpy().astype(np.int64)
+    g = A.group
+    per_warp = np.concatenate([rl, np.zeros(-len(rl) % (32 // g), np.int64)]).reshape(-1, 32 // g)
+    stepped = (-(-per_warp.max(axis=1) // g) * g * (32 // g)).sum()
+    return int(rl.sum()), rl.sum() / A.nnz, rl.sum() / stepped
+
+
+def ell_sector_bytes(A: ELLMatrix) -> int:
+    """Bytes of the 32-byte memory sectors that hold A's real entries in
+    its (nrows, K) values and cols: what reading to row lengths fetches,
+    padding that shares a sector with a real entry included."""
+    rl = A.row_len.cpu().numpy().astype(np.int64)
+    total = 0
+    for width in (A.values.element_size(), 4):
+        start = np.arange(A.nrows, dtype=np.int64)[rl > 0] * A.row_width * width
+        first, last = start // 32, (start + rl[rl > 0] * width - 1) // 32
+        seen = np.concatenate([[-1], np.maximum.accumulate(last)[:-1]])
+        total += 32 * int(np.maximum(last - np.maximum(first, seen + 1) + 1, 0).sum())
+    return total
+
+
 def ell_bound_ms(A: ELLMatrix, x: torch.Tensor) -> float:
-    """Bytes K3 must move (values and int32 columns of every stored slot,
-    x and y once each) over the card's memory rate."""
-    nbytes = A.nnz * (A.values.element_size() + 4) + (A.ncols + A.nrows) * x.element_size()
+    """Bytes K3 must move (value and int32 column of every real entry, the
+    int32 row lengths, x and y once each) over the card's memory rate."""
+    real = ell_fill(A)[0]
+    nbytes = (real * (A.values.element_size() + 4) + 4 * A.nrows
+              + (A.ncols + A.nrows) * x.element_size())
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -264,9 +300,23 @@ def main() -> None:
         assert e <= tol, f"{tag}: max relative error {e:.3e} > {tol:.0e}"
         lines.append(f"{tag} {e:.2e}")
 
-    def check_k3(tag, A, x, tol):
-        check(tag, "K3", k3.ell_spmv_cuda(A.values, A.cols, x, A.ncols),
-              k3.ell_spmv_plain(A.values, A.cols, x), tol)
+    def check_k3(tag, x, tol, values, cols, ncols, row_len=None, group=None):
+        """K3 on bare arrays against its plain version (slots past a row's
+        length may hold anything here; an ELLMatrix keeps them 0)."""
+        check(tag, "K3", k3.ell_spmv_cuda(values, cols, x, ncols, group, row_len),
+              k3.ell_spmv_plain(values, cols, x, row_len), tol)
+
+    def check_ell(tag, A, x, tol):
+        check_k3(tag, x, tol, A.values, A.cols, A.ncols, A.row_len, A.group)
+
+    def check_k2(tag, A, x, tol, box):
+        """K2 on A against its plain version; `box`: whether the box kernel
+        must have taken it."""
+        args = (A.bands, A.offsets, A.grid_shape, A._periodic(), x)
+        before = k2.counts.box
+        y = k2.banded_stencil_cuda(*args)
+        assert k2.counts.box - before == int(box), f"{tag}: box kernel taken {not box}"
+        check(f"K2{tag}", "K2", y, k2.banded_stencil_plain(*args), tol)
 
     for shape in level_shapes:
         for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
@@ -281,10 +331,28 @@ def main() -> None:
             mesh = mesh_of(shape)
             A = eliminate_dirichlet(laplacian(mesh, dt, dev), mesh.boundary_vertex_mask())
             A = A.astype(band_dt)
-            x = vec(A.n, dt)
-            args = (A.bands, A.offsets, A.grid_shape, A._periodic(), x)
-            check(f"K2{shape}{str(band_dt)[6:]}", "K2",
-                  k2.banded_stencil_cuda(*args), k2.banded_stencil_plain(*args), tol)
+            check_k2(f"{shape}{str(band_dt)[6:]}", A, vec(A.n, dt), tol, len(shape) == 3)
+    # the box kernel at edge shapes (tiles of 8 x 64 / 8 x 32 points that
+    # fill no whole tile, k extents of no multiple of 32), with random bands
+    # and a permuted offset table, against the plain and the general kernel
+    for shape in ((2, 2, 2), (33, 17, 5), (9, 7, 67), (5, 3, 131), (N1,) * 3):
+        mesh = mesh_of(shape)
+        A64 = eliminate_dirichlet(laplacian(mesh, torch.float64, dev), mesh.boundary_vertex_mask())
+        order = rng.permutation(27)
+        bands = torch.from_numpy(rng.normal(size=A64.bands.shape)).to(dev)
+        Ar = dataclasses.replace(A64, bands=bands, offsets=tuple(A64.offsets[s] for s in order))
+        for dt, band_dt, tol in ((torch.float32, torch.float32, F32_TOL),
+                                 (torch.float64, torch.float64, F64_TOL),
+                                 (torch.float32, torch.bfloat16, F32_TOL)):
+            x = vec(A64.n, dt)
+            tag = f"[box {shape}]{str(band_dt)[6:]}"
+            check_k2(tag, A64.astype(band_dt), x, tol, True)
+            check_k2(f"{tag} rand", Ar.astype(band_dt), x, tol, True)
+            if shape[0] == N1:
+                A = A64.astype(band_dt)
+                check(f"K2box=general{shape}{str(band_dt)[6:]}", "K2", A.matvec(x),
+                      k2.banded_stencil_cuda(A.bands, A.offsets, A.grid_shape, A._periodic(), x,
+                                             general=True), tol)
     S = None
     for m in (33, 33, 33):  # kron of pentadiagonals: a 125-offset envelope
         T = sp.diags([rng.normal(size=m - abs(k)) for k in range(-2, 3)], range(-2, 3),
@@ -299,10 +367,7 @@ def main() -> None:
     for tag, A64 in extra.items():
         for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
             A = A64.astype(dt)
-            x = vec(A.n, dt)
-            args = (A.bands, A.offsets, A.grid_shape, A._periodic(), x)
-            check(f"K2[{tag}]{str(dt)[6:]}", "K2",
-                  k2.banded_stencil_cuda(*args), k2.banded_stencil_plain(*args), tol)
+            check_k2(f"[{tag}]{str(dt)[6:]}", A, vec(A.n, dt), tol, False)
     # K1 and K2 on the same operator: the Dirichlet-eliminated Laplacian
     for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
         mesh = mesh_of((N1,) * 3)
@@ -312,28 +377,38 @@ def main() -> None:
         check(f"K1=K2({N1}^3){str(dt)[6:]}", "K1", Ac.matvec(x), Ab.matvec(x), tol)
     # K3: the Laplacian as an ELL (zero face couplings dropped), and K3
     # against K2 on it; then random patterns, square and rectangular, with
-    # row counts that fill no whole block and row widths of every group size
+    # row counts that fill no whole block and row widths of every group
+    # size, with every slot counted and with random row lengths (zero-length
+    # rows, full rows, garbage past each row's length)
     Aell = ell_from_scipy(to_scipy(Ab), device=dev)  # Ab is the f64 one
-    assert Aell.row_width == 21, Aell.row_width
+    assert Aell.row_width == 21 and Aell.row_len is not None, Aell.row_width
     for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
         A = Aell.astype(dt)
         x = vec(A.ncols, dt)
-        check_k3(f"K3[lap {N1}^3 K={A.row_width}]{str(dt)[6:]}", A, x, tol)
+        check_ell(f"K3[lap {N1}^3 K={A.row_width}]{str(dt)[6:]}", A, x, tol)
         check(f"K3=K2({N1}^3){str(dt)[6:]}", "K3", A.matvec(x), Ab.astype(dt).matvec(x), tol)
     for nrows, ncols, K in ((300_001, 1_000_003, 20), (100, 100, 7), (1001, 1001, 27),
                             (12_345, 777, 13), (777, 12_345, 1), (50_001, 50_001, 3),
                             (4099, 4099, 64)):
         cols = torch.from_numpy(rng.integers(0, ncols, size=(nrows, K), dtype=np.int32)).to(dev)
         vals = torch.from_numpy(rng.normal(size=(nrows, K))).to(dev)
+        row_len = rng.integers(0, K + 1, size=nrows).astype(np.int32)
+        row_len[::7] = 0
+        row_len[1::5] = K
+        group = k3.group_size(K, row_len.mean())
+        row_len = torch.from_numpy(row_len).to(dev)
         for v_dt, x_dt, tol in ((torch.float32, torch.float32, F32_TOL),
                                 (torch.bfloat16, torch.float32, F32_TOL),
                                 (torch.float64, torch.float64, F64_TOL)):
-            A = ELLMatrix(vals.to(v_dt), cols, ncols)
-            check_k3(f"K3[rand {nrows}x{ncols} K={K}]{str(v_dt)[6:]}", A, vec(ncols, x_dt), tol)
+            x = vec(ncols, x_dt)
+            tag = f"K3[rand {nrows}x{ncols} K={K}"
+            check_k3(f"{tag}]{str(v_dt)[6:]}", x, tol, vals.to(v_dt), cols, ncols)
+            check_k3(f"{tag} row_len G={group}]{str(v_dt)[6:]}", x, tol, vals.to(v_dt), cols,
+                     ncols, row_len, group)
     print(f"[3 kernels] {len(lines)} cases within f32 {F32_TOL:.0e} / f64 {F64_TOL:.0e} "
           f"(bf16 bands and values against the plain version on the same bf16 data): "
           + ", ".join(lines) + f" {elapsed()}", flush=True)
-    del extra, S, Ac, Ab, A, A64, x, args, Aell, cols, vals
+    del extra, S, Ac, Ab, A, A64, Ar, bands, x, Aell, cols, vals, row_len
     lines.clear()
 
     # ---- 4, 5, 6 main paths: small checks, then each counted NC^3 run ---
@@ -363,7 +438,7 @@ def main() -> None:
           f"{st_cpu.niter} its, x rel diff {e32:.1e}); {NC}^3/4 levels {stA.niter} its, "
           f"flag {stA.flag}, L2 error {infoA['l2_error']:.3e}, "
           f"{secsA:.2f} s incl. setup; K1 launches {launches['A']['K1']} = "
-          f"(n+1)((L-1)(2k+1)+2) = {nA}, K2 launches 1 (L2 error), plain launches 0 "
+          f"(n+1)((L-1)(2k+1)+2) = {nA}, K2 launches 1 (L2 error, box kernel), plain launches 0 "
           f"{elapsed()}", flush=True)
 
     # path B: banded stencils (K2), f64
@@ -390,7 +465,8 @@ def main() -> None:
           f"(L2 {info64['l2_error']:.3e}); 16^3 card = CPU plain path {st16.niter} its, "
           f"x rel diff {e16:.1e}; {NC}^3/4 levels {stB.niter} its, flag CONVERGED_RTOL, "
           f"L2 error {infoB['l2_error']:.3e}, {secsB:.2f} s incl. setup; K2 launches "
-          f"{launches['B']['K2']} = 3*{lanczos} Lanczos + (n+1)((L-1)(2k+1)+2) + 1 = {nB}; "
+          f"{launches['B']['K2']} = 3*{lanczos} Lanczos + (n+1)((L-1)(2k+1)+2) + 1 = {nB}, "
+          f"all on the box kernel; "
           f"plain launches 0 {elapsed()}", flush=True)
     del xB, info64, x16, x16c, x, x_cpu
 
@@ -423,7 +499,8 @@ def main() -> None:
           f"{shapes}, ELL widths levels 1.. {widths[0]}, P {widths[1]}, R {widths[2]}; "
           f"{stC.niter} its, flag CONVERGED_RTOL, L2 error {l2C:.3e}; set-up {setupC:.2f} s "
           f"(host aggregation and Galerkin products, device Lanczos), set-up + solve + L2 "
-          f"{secsC:.2f} s; K2 launches {nC2} = {lanczos} + (n+1)(2k+2) + 1, K3 launches "
+          f"{secsC:.2f} s; K2 launches {nC2} = {lanczos} + (n+1)(2k+2) + 1 (box kernel), "
+          f"K3 launches "
           f"{nC3} = {lanczos}(L-2) + (n+1)((L-2)(2k+1) + 1 + 2(L-1)), K1 0, plain "
           f"launches 0 {elapsed()}", flush=True)
 
@@ -434,10 +511,13 @@ def main() -> None:
     for tag, A in ops:
         assert isinstance(A, ELLMatrix) and A.dtype == torch.float32, (tag, type(A))
         x = vec(A.ncols, torch.float32)
-        check_k3(f"{tag} {A.nrows}x{A.ncols} K={A.row_width} f32", A, x, F32_TOL)
-        check_k3(f"{tag} bf16", A.astype(torch.bfloat16), x, F32_TOL)
+        check_ell(f"{tag} {A.nrows}x{A.ncols} K={A.row_width} f32", A, x, F32_TOL)
+        check_ell(f"{tag} bf16", A.astype(torch.bfloat16), x, F32_TOL)
     A1 = amg["mats"][1].astype(torch.float64)
-    check_k3("level 1 f64", A1, vec(A1.ncols, torch.float64), F64_TOL)
+    check_ell("level 1 f64", A1, vec(A1.ncols, torch.float64), F64_TOL)
+    A1 = amg["mats"][1]
+    check_k3("level 1 every slot f32", vec(A1.ncols, torch.float32), F32_TOL, A1.values, A1.cols,
+             A1.ncols)
     print(f"[7 K3 ops] {len(lines)} cases on path C's {NC}^3 operators within f32 "
           f"{F32_TOL:.0e} / f64 {F64_TOL:.0e}: " + ", ".join(lines) + f" {elapsed()}",
           flush=True)
@@ -452,14 +532,13 @@ def main() -> None:
     mesh = mesh_of((N1,) * 3)
     Ac = laplacian_const(mesh, torch.float32, dev)
     Ab = eliminate_dirichlet(laplacian(mesh, torch.float32, dev), mesh.boundary_vertex_mask())
-    A16 = Ab.astype(torch.bfloat16)
     Ab64 = eliminate_dirichlet(laplacian(mesh, torch.float64, dev), mesh.boundary_vertex_mask())
     x = vec(Ac.n, torch.float32)
-    x64 = x.double()
     a1 = (Ac.weights, Ac.free, Ac.offsets, Ac.grid_shape, x)
     per = Ab._periodic()
     # library yardsticks: cuDNN conv3d with the 27 weights (no mask
-    # pass-through) for K1, cuSPARSE CSR SpMV of the same matrix for K2, K3
+    # pass-through) for K1, cuSPARSE CSR SpMV of the same matrix (int32
+    # indices; int64 beside it) for K2, K3
     w3 = torch.zeros((3, 3, 3), dtype=torch.float32, device=dev)
     for s, off in enumerate(Ac.offsets):
         w3[tuple(o + 1 for o in off)] = Ac.weights[s]
@@ -467,19 +546,23 @@ def main() -> None:
     x5 = x.reshape(1, 1, N1, N1, N1)
     S_lap = to_scipy(Ab)  # explicit zeros dropped: K = 21
     csrB = csr_of(S_lap, dev, torch.float32)
+    csrB64 = csr_of(S_lap, dev, torch.float32, torch.int64)
     t = {
         "K1": median_ms(lambda: k1.const_stencil_cuda(*a1)),
         "K1 cold L2": median_ms(lambda: k1.const_stencil_cuda(*a1), before=cold),
         "K1 plain": median_ms(lambda: k1.const_stencil_plain(*a1)),
         "K1 library": median_ms(lambda: torch.nn.functional.conv3d(x5, w3, padding=1)),
-        "K2": median_ms(lambda: k2.banded_stencil_cuda(Ab.bands, Ab.offsets, Ab.grid_shape, per, x)),
-        "K2 plain": median_ms(lambda: k2.banded_stencil_plain(Ab.bands, Ab.offsets, Ab.grid_shape, per, x)),
         "K2 library": median_ms(lambda: torch.mv(csrB, x)),
-        "K2 bf16": median_ms(lambda: k2.banded_stencil_cuda(A16.bands, A16.offsets, A16.grid_shape, per, x)),
-        "K2 bf16 plain": median_ms(lambda: k2.banded_stencil_plain(A16.bands, A16.offsets, A16.grid_shape, per, x)),
-        "K2 f64": median_ms(lambda: k2.banded_stencil_cuda(Ab64.bands, Ab64.offsets, Ab64.grid_shape, per, x64)),
-        "K2 f64 plain": median_ms(lambda: k2.banded_stencil_plain(Ab64.bands, Ab64.offsets, Ab64.grid_shape, per, x64)),
+        "K2 library int64": median_ms(lambda: torch.mv(csrB64, x)),
     }
+    # K2: the box kernel (the wrapper's choice), the general kernel on the
+    # same operator, and the plain version, in f32, bf16 bands and f64
+    k2_args = {key: (A.bands, A.offsets, A.grid_shape, per, xx) for key, A, xx in (
+        ("K2", Ab, x), ("K2 bf16", Ab.astype(torch.bfloat16), x), ("K2 f64", Ab64, x.double()))}
+    for key, args in k2_args.items():
+        t[key] = median_ms(lambda: k2.banded_stencil_cuda(*args))
+        t[f"{key} general"] = median_ms(lambda: k2.banded_stencil_cuda(*args, general=True))
+        t[f"{key} plain"] = median_ms(lambda: k2.banded_stencil_plain(*args))
     n = Ac.n
     bound = {
         "K1": 3 * 4 * n / HBM_BYTES_PER_S * 1e3,            # x, free read, y written
@@ -487,26 +570,47 @@ def main() -> None:
         "K2 bf16": (27 * 2 + 2 * 4) * n / HBM_BYTES_PER_S * 1e3,
         "K2 f64": (27 + 2) * 8 * n / HBM_BYTES_PER_S * 1e3,
     }
+    # K3 as ELLMatrix.matvec runs it (rows read to their lengths), and the
+    # same kernel reading all K slots at the lanes K gives (a matrix built
+    # with no row lengths)
     Aell = ell_from_scipy(S_lap, device=dev)
     k3_ops = {"level 1": amg["mats"][1], "P0": amg["P"][0], "R0": amg["R"][0],
               f"lap {N1}^3": Aell}
+    k3_x = {tag: vec(A.ncols, torch.float32) for tag, A in k3_ops.items()}
+    fills = []
     for tag, A in k3_ops.items():
-        xk = vec(A.ncols, torch.float32)
-        csr = csrB if A is Aell else csr_of(to_scipy(A), dev, A.dtype)
-        t[f"K3 {tag}"] = median_ms(lambda: k3.ell_spmv_cuda(A.values, A.cols, xk, A.ncols))
-        t[f"K3 {tag} plain"] = median_ms(lambda: k3.ell_spmv_plain(A.values, A.cols, xk))
+        xk = k3_x[tag]
+        S_A = S_lap if A is Aell else to_scipy(A)
+        csr = csrB if A is Aell else csr_of(S_A, dev, A.dtype)
+        csr64 = csrB64 if A is Aell else csr_of(S_A, dev, A.dtype, torch.int64)
+        t[f"K3 {tag}"] = median_ms(lambda: A.matvec(xk))
+        t[f"K3 {tag} every slot"] = median_ms(
+            lambda: k3.ell_spmv_cuda(A.values, A.cols, xk, A.ncols))
+        t[f"K3 {tag} plain"] = median_ms(
+            lambda: k3.ell_spmv_plain(A.values, A.cols, xk, A.row_len))
         t[f"K3 {tag} library"] = median_ms(lambda: torch.mv(csr, xk))
+        t[f"K3 {tag} library int64"] = median_ms(lambda: torch.mv(csr64, xk))
         bound[f"K3 {tag}"] = ell_bound_ms(A, xk)
-        del csr
-    del csrB, S_lap
-    # lanes per row: K3 at every group size on the same operators
+        real, fill, warp_fill = ell_fill(A)
+        vb = A.values.element_size()
+        fills.append(f"{tag} {A.nrows}x{A.ncols} K={A.row_width}: {real} entries, mean row "
+                     f"{real / A.nrows:.2f}, fill {fill:.3f}, warp fill {warp_fill:.3f} at "
+                     f"G={A.group}; values + cols: real {real * (vb + 4)} B, in the sectors "
+                     f"read {ell_sector_bytes(A)} B, stored {A.nnz * (vb + 4)} B; CSR int32 "
+                     f"values + indices + row pointers {real * (vb + 4) + 4 * (A.nrows + 1)} B")
+        del csr, csr64
+    del csrB, csrB64, S_lap
+    # K3's lanes a row, read to row lengths and in full
     sweep = []
     for tag, A in k3_ops.items():
-        xk = vec(A.ncols, torch.float32)
-        ms = {g: median_ms(lambda: k3.ell_spmv_cuda(A.values, A.cols, xk, A.ncols, g))
-              for g in (1, 2, 4, 8, 16, 32)}
-        sweep.append(f"{tag} K={A.row_width} (default G={k3.group_size(A.row_width)}): "
-                     + " ".join(f"G{g} {v:.4f}" for g, v in ms.items()))
+        xk = k3_x[tag]
+        for row_len, default in ((A.row_len, A.group), (None, k3.group_size(A.row_width))):
+            ms = {g: median_ms(lambda: k3.ell_spmv_cuda(A.values, A.cols, xk, A.ncols, g,
+                                                        row_len))
+                  for g in (1, 2, 4, 8, 16, 32)}
+            sweep.append(f"{tag} {'to lengths' if row_len is not None else 'every slot'} "
+                         f"(default G={default}): "
+                         + " ".join(f"G{g} {v:.4f}" for g, v in ms.items()))
     for tag, info, b in (("solve A", infoA, infoA["problem"].b),
                          ("solve B", infoB, infoB["problem"].b)):
         t[tag] = median_ms(lambda: info["solver"].solve(info["state"], b), runs=20, warmup=2,
@@ -515,11 +619,13 @@ def main() -> None:
     print(f"[8 times] {card} | {N1}^3 stencils f32 unless said, K3 on path C's f32 operators; "
           f"median of {TIMING_RUNS} (CUDA events), ms per apply: "
           + ", ".join(f"{k} {v:.4f}" for k, v in t.items() if not k.startswith("solve"))
-          + " | bound ms (bytes / 3.35 TB/s): "
+          + " | bound ms (bytes / 3.35 TB/s; K3 on real entries): "
           + ", ".join(f"{k} {v:.4f}" for k, v in bound.items())
           + f" | {NC}^3 solve only, median of 20: A (const f32, {stA.niter} its) "
           f"{t['solve A']:.2f} ms, B (banded f64, {stB.niter} its) {t['solve B']:.2f} ms, "
           f"C (AMG f32, {stC.niter} its) {t['solve C']:.2f} ms {elapsed()}", flush=True)
+    print(f"[8 K3 fill] real entries of the stored slots, and of the slots K3's warps step "
+          f"through: " + "; ".join(fills), flush=True)
     print(f"[8 K3 lanes per row] {card} | ms per apply by group size G: " + "; ".join(sweep),
           flush=True)
     if opts.profile is not None:
@@ -533,13 +639,25 @@ def main() -> None:
                 "plain_ms": t[f"{shape_key} plain"], "bound_ms": bound[shape_key],
                 "bound_by": "bytes", "library_ms": t[f"{shape_key} library"]}
 
+    def r4(v):
+        return round(v, 4)
+
+    k2_row = row("K2", "K2 banded_stencil", "gridapsolvers_tpu_torch/csrc/banded_stencil.cu",
+                 "gridapsolvers_tpu/ops/banded_pallas.py:64", "K2")
+    k2_row.update({"general_ms": t["K2 general"], "library_int64_ms": t["K2 library int64"], **{
+        dt: {"ms": r4(t[f"K2 {dt}"]), "general_ms": r4(t[f"K2 {dt} general"]),
+             "bound_ms": r4(bound[f"K2 {dt}"])} for dt in ("bf16", "f64")}})
+    k3_row = row("K3", "K3 ell_spmv", "gridapsolvers_tpu_torch/csrc/ell_spmv.cu",
+                 "gridapsolvers_tpu/ops/ell_pallas.py:113", "K3 level 1")
+    k3_row.update({"library_int64_ms": t["K3 level 1 library int64"], **{
+        tag: {"ms": r4(t[f"K3 {tag}"]), "bound_ms": r4(bound[f"K3 {tag}"]),
+              "library_ms": r4(t[f"K3 {tag} library"]),
+              "library_int64_ms": r4(t[f"K3 {tag} library int64"])} for tag in ("R0", "P0")}})
     summary = {"kernels": [
         row("K1", "K1 const_stencil", "gridapsolvers_tpu_torch/csrc/const_stencil.cu",
             "gridapsolvers_tpu/ops/stencil_pallas.py:61", "K1"),
-        row("K2", "K2 banded_stencil", "gridapsolvers_tpu_torch/csrc/banded_stencil.cu",
-            "gridapsolvers_tpu/ops/banded_pallas.py:64", "K2"),
-        row("K3", "K3 ell_spmv", "gridapsolvers_tpu_torch/csrc/ell_spmv.cu",
-            "gridapsolvers_tpu/ops/ell_pallas.py:113", "K3 level 1"),
+        k2_row,
+        k3_row,
     ]}
     print(json.dumps(summary))
     torch.cuda.synchronize()

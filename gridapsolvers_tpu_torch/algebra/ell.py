@@ -3,12 +3,20 @@
 Port of `gridapsolvers_tpu/algebra/ell.py`. Every row is padded to a
 fixed width K:
 
-    values : (n_rows, K) tensor, zero-padded
-    cols   : (n_rows, K) int32, padding points at min(row, ncols - 1)
+    values  : (n_rows, K) tensor, zero-padded
+    cols    : (n_rows, K) int32, padding points at min(row, ncols - 1)
+    row_len : optional (n_rows,) int32, the real entries of each row, which
+              fill its slots 0..row_len-1 (None: every slot counts)
 
-and SpMV is `(values * x[cols]).sum(1)`. `ELLMatrix.matvec` runs kernel
-K3 (`ops/ell_spmv.py`) on CUDA tensors and its plain PyTorch version on
-CPU tensors; any column pattern, square or rectangular, takes the kernel.
+and SpMV is `(values * x[cols]).sum(1)` over the first row_len slots of
+each row. `row_len` is pattern data like `cols`: the host conversions set
+it from the pattern's row counts, never from the values, so a values-only
+refresh that fills a slot holding 0 today keeps it. Slots at or past a
+row's length hold value 0, as every host conversion lays them out: only
+`matvec` skips them, every other method reads all K slots. `ELLMatrix.matvec`
+runs kernel K3 (`ops/ell_spmv.py`) on CUDA tensors and its plain PyTorch
+version on CPU tensors; any column pattern, square or rectangular, takes
+the kernel.
 The host conversions (`ell_from_coo`, `ell_from_scipy`, `ell_to_scipy`)
 build the same arrays as the JAX package's, bit for bit.
 """
@@ -20,17 +28,22 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.ell_spmv import ell_spmv_apply
+from ..ops.ell_spmv import ell_spmv_apply, group_size
 from ..utils import resolve_device
 
 
 @dataclasses.dataclass
 class ELLMatrix:
-    """Square-or-rectangular sparse matrix in padded ELL format."""
+    """Square-or-rectangular sparse matrix in padded ELL format. With
+    `row_len`, every slot at or past a row's length must hold value 0."""
 
     values: torch.Tensor  # (n_rows, K)
     cols: torch.Tensor    # (n_rows, K) int32
     ncols: int
+    row_len: Optional[torch.Tensor] = None  # (n_rows,) int32, on the same device
+    # K3's lanes a row, set by the host conversions from the pattern's row
+    # counts (None: the kernel's choice from K); any value gives the same y
+    group: Optional[int] = None
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -59,7 +72,7 @@ class ELLMatrix:
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """y = A @ x. x: (ncols,) -> y: (nrows,)."""
-        return ell_spmv_apply(self.values, self.cols, self.ncols, x)
+        return ell_spmv_apply(self.values, self.cols, self.ncols, x, self.row_len, self.group)
 
     def matvec_t(self, y: torch.Tensor) -> torch.Tensor:
         """x = A.T @ y by scatter-add."""
@@ -77,10 +90,10 @@ class ELLMatrix:
         return torch.abs(self.values).sum(dim=1)
 
     def scale_rows(self, d: torch.Tensor) -> "ELLMatrix":
-        return ELLMatrix(self.values * d[:, None], self.cols, self.ncols)
+        return dataclasses.replace(self, values=self.values * d[:, None])
 
     def astype(self, dtype) -> "ELLMatrix":
-        return ELLMatrix(self.values.to(dtype), self.cols, self.ncols)
+        return dataclasses.replace(self, values=self.values.to(dtype))
 
     def todense(self) -> torch.Tensor:
         """Dense (nrows, ncols) matrix (coarse solves, checks); duplicate
@@ -93,11 +106,13 @@ class ELLMatrix:
         )
 
 
-def _ell(vals: np.ndarray, cols: np.ndarray, n_cols: int, dtype, device) -> ELLMatrix:
+def _ell(vals: np.ndarray, cols: np.ndarray, n_cols: int, counts: np.ndarray, dtype,
+         device) -> ELLMatrix:
     dev = resolve_device(device)
     v = torch.from_numpy(vals)
     return ELLMatrix(v.to(device=dev, dtype=dtype or v.dtype), torch.from_numpy(cols).to(dev),
-                     int(n_cols))
+                     int(n_cols), torch.from_numpy(counts.astype(np.int32)).to(dev),
+                     group_size(cols.shape[1], counts.mean() if len(counts) else 0.0))
 
 
 def _padding_cols(n_rows: int, n_cols: int, K: int) -> np.ndarray:
@@ -143,7 +158,7 @@ def ell_from_coo(
     slot = np.arange(len(urows)) - starts[urows]
     ell_vals[urows, slot] = summed
     ell_cols[urows, slot] = ucols.astype(np.int32)
-    return _ell(ell_vals, ell_cols, n_cols, dtype, device)
+    return _ell(ell_vals, ell_cols, n_cols, counts, dtype, device)
 
 
 def ell_from_scipy(S, row_width: Optional[int] = None, dtype=None, device=None) -> ELLMatrix:
@@ -162,7 +177,7 @@ def ell_from_scipy(S, row_width: Optional[int] = None, dtype=None, device=None) 
     slot = np.arange(S.nnz) - np.repeat(S.indptr[:-1], counts)
     vals[r, slot] = S.data
     cols[r, slot] = S.indices.astype(np.int32)
-    return _ell(vals, cols, n_cols, dtype, device)
+    return _ell(vals, cols, n_cols, counts, dtype, device)
 
 
 def ell_to_scipy(A: ELLMatrix):

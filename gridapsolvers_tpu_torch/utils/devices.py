@@ -6,6 +6,8 @@ machine without one raises: nothing moves work to the CPU on its own.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -35,10 +37,10 @@ def numpy_dtype(dtype: torch.dtype):
         raise ValueError(f"no host assembly dtype for {dtype}") from None
 
 
-def check_same_device(x: torch.Tensor, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor lies on x's device."""
+def check_same_device(x: torch.Tensor, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise unless every tensor (None for an absent one) lies on x's device."""
     for t in tensors:
-        if t.device != x.device:
+        if t is not None and t.device != x.device:
             raise ValueError(
                 f"operator tensor on {t.device} but vector on {x.device}"
             )

@@ -248,6 +248,139 @@ def test_ell_wrapper_refuses_without_building():
     assert (ell_spmv.counts.kernel, ell_spmv.counts.plain) == before
     with pytest.raises(ValueError, match="group"):
         ell_spmv.ell_spmv_cuda(A.values, A.cols, x, 20, group=3)
-    # about six slots a lane: the widths of the AMG path's operators
+    # about seven slots a lane for rows read in full: the widths of the AMG
+    # path's operators
     assert [ell_spmv.group_size(K) for K in (0, 1, 6, 8, 13, 21, 125, 147, 263)] == [
-        1, 1, 1, 1, 2, 4, 16, 32, 32]
+        1, 1, 1, 1, 2, 4, 16, 16, 32]
+
+
+# ------------------------------------------------------ row lengths -----
+
+
+def _coo_with_short_and_full_rows(n_rows, n_cols, seed):
+    """Random COO whose rows include empty ones and ones at the widest
+    row's length, duplicates included."""
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = _random_coo(n_rows, n_cols, 3 * n_rows, seed)
+    keep = rows % 5 != 0  # every fifth row empty
+    full = np.full(n_cols, 1)  # row 1 couples to every column
+    return (np.concatenate([rows[keep], full]), np.concatenate([cols[keep], np.arange(n_cols)]),
+            np.concatenate([vals[keep], rng.normal(size=n_cols)]))
+
+
+@pytest.mark.parametrize("shape", [(40, 40), (37, 11), (9, 50)])
+def test_row_len_is_the_csr_row_count(shape):
+    rows, cols, vals = _coo_with_short_and_full_rows(*shape, seed=20)
+    S = sp.coo_matrix((vals, (rows, cols)), shape=shape).tocsr()
+    S.sum_duplicates()
+    counts = np.diff(S.indptr)
+    assert counts.min() == 0 and counts.max() == shape[1]
+    for A, jA in ((ell_from_scipy(S, device="cpu"), j_ell_from_scipy(S)),
+                  (ell_from_coo(*shape, rows, cols, vals, device="cpu"),
+                   j_ell_from_coo(*shape, rows, cols, vals)),
+                  (ell_from_scipy(S, row_width=shape[1] + 3, device="cpu"),
+                   j_ell_from_scipy(S, row_width=shape[1] + 3))):
+        _eq_ell(A, jA)  # values and cols stay bit-equal to the JAX package's
+        assert A.row_len.dtype == torch.int32 and A.row_len.device == A.device
+        np.testing.assert_array_equal(A.row_len.numpy(), counts)
+        assert A.group == ell_spmv.group_size(A.row_width, counts.mean())
+        # every slot past a row's length holds 0, as `ELLMatrix` requires
+        past = np.arange(A.row_width)[None, :] >= counts[:, None]
+        assert (A.values.numpy()[past] == 0).all()
+
+
+@pytest.mark.parametrize("ncells, periodic", [((5, 4, 3), None), ((6, 5), (True, False))])
+def test_stencil_to_ell_row_len(ncells, periodic):
+    mesh = _unit_mesh(ncells, periodic)
+    jA = j_laplacian(mesh)
+    if periodic is None:
+        jA = j_eliminate(jA, mesh.boundary_vertex_mask())
+    A = convert.stencil_matrix(np.asarray(jA.bands), jA.offsets, jA.grid_shape, jA.periodic,
+                               device="cpu")
+    E = A.to_ell()
+    np.testing.assert_array_equal(E.row_len.numpy(), np.diff(to_scipy(A).indptr))
+    assert E.row_len.min() < E.row_width  # Dirichlet rows and corners are short
+
+
+def test_astype_and_scale_rows_carry_row_len():
+    rows, cols, vals = _coo_with_short_and_full_rows(30, 12, seed=21)
+    A = ell_from_coo(30, 12, rows, cols, vals, device="cpu")
+    d = torch.from_numpy(np.random.default_rng(22).normal(size=30))
+    for B in (A.astype(torch.float32), A.astype(torch.bfloat16), A.scale_rows(d)):
+        assert B.row_len is A.row_len and B.cols is A.cols and B.group == A.group
+    np.testing.assert_array_equal(A.scale_rows(d).values.numpy(),
+                                  A.values.numpy() * d.numpy()[:, None])
+
+
+@pytest.mark.parametrize("shape", [(60, 60), (45, 13), (13, 45)])
+def test_ell_spmv_plain_row_len_matches_jax_f64(shape):
+    """The plain version with and without row lengths against the JAX
+    ELLMatrix.matvec, with empty rows and full rows."""
+    rows, cols, vals = _coo_with_short_and_full_rows(*shape, seed=23)
+    jA = j_ell_from_coo(*shape, rows, cols, vals)
+    A = ell_from_coo(*shape, rows, cols, vals, device="cpu")
+    assert (A.row_len.numpy() == 0).any() and (A.row_len.numpy() == A.row_width).any()
+    x = np.random.default_rng(24).normal(size=shape[1])
+    y_ref = np.asarray(jA.matvec(jnp.asarray(x)))
+    xt = torch.from_numpy(x)
+    for row_len in (A.row_len, None):
+        y = ell_spmv.ell_spmv_plain(A.values, A.cols, xt, row_len)
+        _assert_close(y.numpy(), y_ref, F64_RTOL)
+    _assert_close(A.matvec(xt).numpy(), y_ref, F64_RTOL)
+    assert (A.matvec(xt).numpy()[A.row_len.numpy() == 0] == 0).all()
+
+
+def test_ell_spmv_plain_ignores_slots_past_row_len():
+    """At the ops level, slots at or past a row's length add nothing,
+    whatever they hold (the kernel never reads them). An `ELLMatrix` keeps
+    them 0; these arrays do not."""
+    rng = np.random.default_rng(25)
+    vals = torch.from_numpy(rng.normal(size=(20, 6)))
+    cols = torch.from_numpy(rng.integers(0, 9, size=(20, 6), dtype=np.int32))
+    row_len = torch.from_numpy(rng.integers(0, 7, size=20).astype(np.int32))
+    x = torch.from_numpy(rng.normal(size=9))
+    keep = np.arange(6)[None, :] < row_len.numpy()[:, None]
+    ref = (np.where(keep, vals.numpy(), 0.0) * x.numpy()[cols.numpy()]).sum(1)
+    y = ell_spmv.ell_spmv_apply(vals, cols, 9, x, row_len)
+    _assert_close(y.numpy(), ref, F64_RTOL)
+
+
+def test_group_size_follows_mean_row_length():
+    """Lanes a row come from the mean real row length, not the padded K,
+    once the host conversions know the row lengths."""
+    assert [ell_spmv.group_size(147, m) for m in (0.0, 2.0, 5.05, 8.89, 20.0, 46.3, 73.3)] == [
+        1, 1, 2, 4, 8, 32, 32]
+    K, n = 40, 64
+    for mean in (4, 12, 30):
+        rng = np.random.default_rng(mean)
+        lens = np.full(n, mean)
+        lens[::2] += rng.integers(-3, 4)
+        lens[1::2] = 2 * mean - lens[::2]  # a mean of exactly `mean`
+        rows = np.repeat(np.arange(n), lens)
+        cols = np.concatenate([rng.permutation(K)[:m] for m in lens])
+        A = ell_from_coo(n, K, rows, cols, rng.normal(size=len(rows)), device="cpu")
+        assert A.group == ell_spmv.group_size(A.row_width, mean)
+        assert A.group != ell_spmv.group_size(A.row_width)  # K's rule differs
+    assert ELLMatrix(A.values, A.cols, K).group is None  # the kernel picks from K
+
+
+def test_ell_wrapper_refuses_row_len_without_building(monkeypatch):
+    """With row lengths too, the CUDA wrapper checks its inputs before any
+    build or launch."""
+    from gridapsolvers_tpu_torch.ops import build
+
+    def no_build(*a, **k):
+        raise AssertionError("a kernel was built or loaded")
+
+    monkeypatch.setattr(build, "function", no_build)
+    rows, cols, vals = _coo_with_short_and_full_rows(20, 20, seed=26)
+    A = ell_from_coo(20, 20, rows, cols, vals, device="cpu")
+    x = torch.zeros(20, dtype=torch.float64)
+    before = (ell_spmv.counts.kernel, ell_spmv.counts.plain)
+    with pytest.raises(ValueError, match="CUDA"):
+        ell_spmv.ell_spmv_cuda(A.values, A.cols, x, 20, A.group, A.row_len)
+    with pytest.raises(ValueError, match="row_len"):
+        ell_spmv.ell_spmv_cuda(A.values, A.cols, x, 20, None, A.row_len.long())
+    with pytest.raises(ValueError, match="row_len"):
+        ell_spmv.ell_spmv_cuda(A.values, A.cols, x, 20, None, A.row_len[:-1])
+    assert (ell_spmv.counts.kernel, ell_spmv.counts.plain) == before

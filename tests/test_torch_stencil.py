@@ -25,7 +25,12 @@ from gridapsolvers_tpu.fem.mesh import CartesianMesh as JMesh
 from gridapsolvers_tpu.ops import pallas_banded_stencil, pallas_const_stencil
 
 from gridapsolvers_tpu_torch import convert
+from gridapsolvers_tpu_torch.algebra import StencilMatrix as port_stencil
 from gridapsolvers_tpu_torch.algebra import stencil_from_scipy
+from gridapsolvers_tpu_torch.algebra.stencil import shift as port_shift
+from gridapsolvers_tpu_torch.fem import CartesianMesh
+from gridapsolvers_tpu_torch.fem.assembly import eliminate_dirichlet as port_eliminate
+from gridapsolvers_tpu_torch.fem.assembly import laplacian as port_laplacian
 from gridapsolvers_tpu_torch.ops import banded_stencil, const_stencil
 
 torch.set_num_threads(1)
@@ -36,6 +41,10 @@ F32_RTOL = 1e-6
 
 def _unit_mesh(ncells, periodic=None):
     return JMesh(tuple(ncells), tuple(x for _ in ncells for x in (0.0, 1.0)), periodic)
+
+
+def port_mesh(ncells, periodic=None):
+    return CartesianMesh(tuple(ncells), tuple(x for _ in ncells for x in (0.0, 1.0)), periodic)
 
 
 def _assert_close(y, y_ref, rtol):
@@ -247,3 +256,97 @@ def test_vector_on_another_device_raises():
         A.matvec(x)
     with pytest.raises(ValueError):
         Ac.matvec(x)
+
+
+# ------------------------------------------------- K2's kernel choice -----
+
+
+def _box_apply(A, perm, x):
+    """The box kernel's arithmetic in plain PyTorch: position b of
+    {-1, 0, 1}^3 (lexicographic) takes band perm[b]."""
+    xg = x.reshape(A.grid_shape)
+    y = torch.zeros_like(xg)
+    for b, off in enumerate(banded_stencil._BOX):
+        y = y + A.bands[perm[b]].to(x.dtype) * port_shift(xg, off)
+    return y.reshape(-1)
+
+
+@pytest.mark.parametrize("ncells", [(1, 1, 1), (4, 4, 4), (7, 5, 3), (8, 16, 2)])
+def test_box_kernel_chosen_for_dirichlet_laplacian(ncells):
+    """`laplacian` + `eliminate_dirichlet` in 3D, the operator of every K2
+    launch on the Poisson paths, takes the box kernel; its band table, in
+    any offset order, reproduces the plain product."""
+    mesh = port_mesh(ncells)
+    A = port_eliminate(port_laplacian(mesh, torch.float64, "cpu"), mesh.boundary_vertex_mask())
+    perm = banded_stencil.box_permutation(A.offsets, A.grid_shape, A._periodic())
+    assert perm is not None and sorted(perm) == list(range(27))
+    assert all(A.offsets[perm[b]] == off for b, off in enumerate(banded_stencil._BOX))
+    rng = np.random.default_rng(30)
+    x = torch.from_numpy(rng.normal(size=A.n))
+    ref = banded_stencil.banded_stencil_plain(A.bands, A.offsets, A.grid_shape,
+                                              A._periodic(), x)
+    _assert_close(_box_apply(A, perm, x).numpy(), ref.numpy(), F64_RTOL)
+    # random bands under a shuffled offset table: out-of-grid neighbours add
+    # nothing whatever their band holds
+    order = rng.permutation(27)
+    B = port_stencil(torch.from_numpy(rng.normal(size=A.bands.shape)),
+                     tuple(A.offsets[s] for s in order), A.grid_shape)
+    perm_b = banded_stencil.box_permutation(B.offsets, B.grid_shape, B._periodic())
+    ref = banded_stencil.banded_stencil_plain(B.bands, B.offsets, B.grid_shape,
+                                              B._periodic(), x)
+    _assert_close(_box_apply(B, perm_b, x).numpy(), ref.numpy(), F64_RTOL)
+
+
+def _general_cases():
+    periodic = port_laplacian(port_mesh((6, 5, 4), (True, False, True)), torch.float64, "cpu")
+    mesh2 = port_mesh((6, 5))
+    flat = port_eliminate(port_laplacian(mesh2, torch.float64, "cpu"),
+                          mesh2.boundary_vertex_mask())
+    envelope = stencil_from_scipy(_q2_like_scipy((6, 7, 5), seed=31), (6, 7, 5), device="cpu")
+    mesh3 = port_mesh((4, 4, 4))
+    A = port_eliminate(port_laplacian(mesh3, torch.float64, "cpu"), mesh3.boundary_vertex_mask())
+    seven = tuple(o for o in A.offsets if sum(map(abs, o)) <= 1)
+    return {"periodic": periodic, "2D": flat, "5^3": envelope,
+            "7-point": port_stencil(A.bands[[A.offsets.index(o) for o in seven]], seven,
+                                    A.grid_shape)}
+
+
+@pytest.mark.parametrize("case", ["periodic", "2D", "5^3", "7-point"])
+def test_general_kernel_chosen_otherwise(case):
+    A = _general_cases()[case]
+    assert banded_stencil.box_permutation(A.offsets, A.grid_shape, A._periodic()) is None
+
+
+@pytest.mark.parametrize("grid_shape, box", [
+    ((65535, 2, 2), True), ((65536, 2, 2), False),
+    ((2, 8 * 65535, 2), True), ((2, 8 * 65535 + 1, 2), False), ((2, 2, 10 ** 6), True)])
+def test_box_kernel_declined_past_its_launch_grid(grid_shape, box):
+    """The box kernel's launch grid holds n0 planes on gridDim.z and n1 / 8
+    tiles on gridDim.y, each at most 65535; larger grids take the general
+    kernel (chosen from the shape alone, with no bands built)."""
+    offsets = tuple(reversed(banded_stencil._BOX))
+    perm = banded_stencil.box_permutation(offsets, grid_shape, (False,) * 3)
+    assert (perm is not None) == box
+
+
+def test_banded_wrapper_refuses_before_any_build(monkeypatch):
+    """Box or general, the CUDA wrapper refuses a CPU tensor before any
+    build or launch, and counts nothing; `counts.box` resets with the rest."""
+    from gridapsolvers_tpu_torch.ops import build
+
+    def no_build(*a, **k):
+        raise AssertionError("a kernel was built or loaded")
+
+    monkeypatch.setattr(build, "function", no_build)
+    mesh = port_mesh((4, 4, 4))
+    A = port_eliminate(port_laplacian(mesh, torch.float64, "cpu"), mesh.boundary_vertex_mask())
+    x = torch.zeros(A.n, dtype=torch.float64)
+    before = (banded_stencil.counts.kernel, banded_stencil.counts.box)
+    for kw in ({}, {"general": True}):
+        with pytest.raises(ValueError, match="CUDA"):
+            banded_stencil.banded_stencil_cuda(A.bands, A.offsets, A.grid_shape,
+                                               A._periodic(), x, **kw)
+    assert (banded_stencil.counts.kernel, banded_stencil.counts.box) == before
+    counts = banded_stencil.StencilLaunchCounts(kernel=3, plain=2, box=1)
+    counts.reset()
+    assert (counts.kernel, counts.plain, counts.box) == (0, 0, 0)
