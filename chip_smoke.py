@@ -11,21 +11,25 @@ through their public entry points, in phases that each print one line:
 
   1 device   card name and power limit (nvidia-smi), TF32 off
   2 build    the kernels, with build seconds and ptxas register counts
-  3 kernels  K1, K2 (its box and general kernels) and K3 (with and without
-             row lengths) against their plain PyTorch versions on the card
+  3 kernels  K1 (its marching and general kernels), K2 (its box and general
+             kernels) and K3 (with and without row lengths) against their
+             plain PyTorch versions on the card
   4 path A   solve_poisson_const (constant stencils, K1), f32, 32^3 and 128^3
   5 path B   solve_poisson (banded stencils, K2), f64, 64^3 and 128^3
   6 path C   CG + smoothed-aggregation AMG (K2 finest level, K3 below and
              for every transfer), f32, 32^3 and 128^3
   7 K3 ops   K3 on path C's own 128^3 level operators, P and R (f32, bf16
              values, one f64 level) against its plain version
-  8 times    per-apply kernel, plain, library and bound times (K2 box
-             against general, K3 with each operator's fill, read to row
-             lengths and in full), K3's lanes sweep, and each 128^3 solve
+  8 times    per-apply kernel, plain, library and bound times (K1
+             marching against general at every path A level, cold and warm
+             L2, and its run-length sweep; K2 box against general; K3 with
+             each operator's fill, read to row lengths and in full), K3's
+             lanes sweep, and each 128^3 solve
 
 Each path's 128^3 run starts with every launch count at 0 and is read
 right after, so the counts show that every operator apply went through
-the kernels, and every K2 launch through its box kernel. Any failed check
+the kernels, every K1 launch through its marching kernel and every K2
+launch through its box kernel. Any failed check
 raises, so a failure exits non-zero. The
 line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
@@ -37,6 +41,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -86,10 +91,12 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """Kernel launches by kernel; raises if any plain version ran or a K2
-    launch took the general kernel."""
+    """Kernel launches by kernel; raises if any plain version ran or a K1
+    or K2 launch took its general kernel."""
     plain = {k: c.plain for k, c in COUNTS.items() if c.plain}
     assert not plain, f"plain versions ran on the main path: {plain}"
+    assert k1.counts.march == k1.counts.kernel, (
+        f"K1 general kernel on the main path: {k1.counts.kernel - k1.counts.march} launches")
     assert k2.counts.box == k2.counts.kernel, (
         f"K2 general kernel on the main path: {k2.counts.kernel - k2.counts.box} launches")
     return {k: c.kernel for k, c in COUNTS.items()}
@@ -102,6 +109,15 @@ def cg_gmg_applies(niter: int, levels: int, degree: int) -> int:
     Chebyshev sweep (pre and post) and once for the correction residual on
     each of the levels-1 smoothing levels, and once on the coarsest."""
     return (niter + 1) * ((levels - 1) * (2 * degree + 1) + 2)
+
+
+def cg_gmg_level_applies(niter: int, levels: int, degree: int) -> list:
+    """cg_gmg_applies by level, finest first: CG's applies go to the finest
+    level, each V-cycle's (2k+1) to every smoothing level and one to the
+    coarsest."""
+    per = [(niter + 1) * (2 * degree + 1)] * (levels - 1) + [niter + 1]
+    per[0] += niter + 1
+    return per
 
 
 def cg_amg_applies(niter: int, levels: int, degree: int, lanczos: int):
@@ -309,6 +325,15 @@ def main() -> None:
     def check_ell(tag, A, x, tol):
         check_k3(tag, x, tol, A.values, A.cols, A.ncols, A.row_len, A.group)
 
+    def check_k1(tag, weights, free, shape, x, tol, march):
+        """K1 on (weights, free) against its plain version; `march`:
+        whether the marching kernel must have taken it."""
+        args = (weights, free, tuple(itertools.product((-1, 0, 1), repeat=len(shape))), shape, x)
+        before = k1.counts.march
+        y = k1.const_stencil_cuda(*args)
+        assert k1.counts.march - before == int(march), f"{tag}: marching kernel taken {not march}"
+        check(f"K1{tag}", "K1", y, k1.const_stencil_plain(*args), tol)
+
     def check_k2(tag, A, x, tol, box):
         """K2 on A against its plain version; `box`: whether the box kernel
         must have taken it."""
@@ -321,10 +346,8 @@ def main() -> None:
     for shape in level_shapes:
         for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
             A = laplacian_const(mesh_of(shape), dt, dev)
-            x = vec(A.n, dt)
-            args = (A.weights, A.free, A.offsets, A.grid_shape, x)
-            check(f"K1{shape}{str(dt)[6:]}", "K1",
-                  k1.const_stencil_cuda(*args), k1.const_stencil_plain(*args), tol)
+            check_k1(f"{shape}{str(dt)[6:]}", A.weights, A.free, shape, vec(A.n, dt), tol,
+                     len(shape) == 3)
         for dt, band_dt, tol in ((torch.float32, torch.float32, F32_TOL),
                                  (torch.float64, torch.float64, F64_TOL),
                                  (torch.float32, torch.bfloat16, F32_TOL)):
@@ -332,6 +355,27 @@ def main() -> None:
             A = eliminate_dirichlet(laplacian(mesh, dt, dev), mesh.boundary_vertex_mask())
             A = A.astype(band_dt)
             check_k2(f"{shape}{str(band_dt)[6:]}", A, vec(A.n, dt), tol, len(shape) == 3)
+    # the marching K1 at edge shapes (tiles that no grid fills, k extents of
+    # no multiple of 32, 2 points an axis) and at every level: with the
+    # Laplacian, with 27 random asymmetric weights (a sign error or a sum
+    # added to the wrong plane shows only there), and with those under a
+    # random mask with zeros inside the grid; against the general kernel at
+    # 129^3
+    for shape in ((2, 2, 2), (33, 17, 5), (9, 7, 67), (5, 3, 131), (17,) * 3, (33,) * 3,
+                  (65,) * 3, (N1,) * 3):
+        for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+            A = laplacian_const(mesh_of(shape), dt, dev)
+            x = vec(A.n, dt)
+            w_rand = vec(27, dt)
+            f_rand = torch.from_numpy((rng.random(shape) < 0.7).astype(np.float64)).to(dev, dt)
+            tag = f"[march {shape}]{str(dt)[6:]}"
+            check_k1(f"{tag} lap", A.weights, A.free, shape, x, tol, True)
+            check_k1(f"{tag} rand", w_rand, A.free, shape, x, tol, True)
+            check_k1(f"{tag} rand mask", w_rand, f_rand, shape, x, tol, True)
+            if shape[0] == N1:
+                args = (w_rand, f_rand, A.offsets, shape, x)
+                check(f"K1march=general{shape}{str(dt)[6:]}", "K1", k1.const_stencil_cuda(*args),
+                      k1.const_stencil_cuda(*args, general=True), tol)
     # the box kernel at edge shapes (tiles of 8 x 64 / 8 x 32 points that
     # fill no whole tile, k extents of no multiple of 32), with random bands
     # and a permuted offset table, against the plain and the general kernel
@@ -408,7 +452,7 @@ def main() -> None:
     print(f"[3 kernels] {len(lines)} cases within f32 {F32_TOL:.0e} / f64 {F64_TOL:.0e} "
           f"(bf16 bands and values against the plain version on the same bf16 data): "
           + ", ".join(lines) + f" {elapsed()}", flush=True)
-    del extra, S, Ac, Ab, A, A64, Ar, bands, x, Aell, cols, vals, row_len
+    del extra, S, Ac, Ab, A, A64, Ar, bands, x, Aell, cols, vals, row_len, w_rand, f_rand
     lines.clear()
 
     # ---- 4, 5, 6 main paths: small checks, then each counted NC^3 run ---
@@ -429,17 +473,20 @@ def main() -> None:
     torch.cuda.synchronize()
     secsA = time.perf_counter() - t0
     launches["A"] = read_counts()
+    marchA = k1.counts.march
     nA = cg_gmg_applies(stA.niter, 4, deg)
     assert ITS["A"][0] <= stA.niter <= ITS["A"][1] and stA.converged(), (stA.niter, stA.flag)
     assert xA.shape == (N1 ** 3,) and bool(torch.isfinite(xA).all())
     assert infoA["l2_error"] <= 2e-4, infoA["l2_error"]
     assert launches["A"] == {"K1": nA, "K2": 1, "K3": 0}, (launches["A"], nA)  # K2: L2 error
+    levelsA = cg_gmg_level_applies(stA.niter, 4, deg)
+    assert sum(levelsA) == nA
     print(f"[4 path A] solve_poisson_const f32: 32^3/3 levels {st.niter} its (CPU plain path "
           f"{st_cpu.niter} its, x rel diff {e32:.1e}); {NC}^3/4 levels {stA.niter} its, "
           f"flag {stA.flag}, L2 error {infoA['l2_error']:.3e}, "
           f"{secsA:.2f} s incl. setup; K1 launches {launches['A']['K1']} = "
-          f"(n+1)((L-1)(2k+1)+2) = {nA}, K2 launches 1 (L2 error, box kernel), plain launches 0 "
-          f"{elapsed()}", flush=True)
+          f"(n+1)((L-1)(2k+1)+2) = {nA}, by level {levelsA}, all on the marching kernel; "
+          f"K2 launches 1 (L2 error, box kernel), plain launches 0 {elapsed()}", flush=True)
 
     # path B: banded stencils (K2), f64
     _, st64, info64 = solve_poisson((64,) * 3, 4, rtol=1e-8, dtype=torch.float64, device=dev)
@@ -547,14 +594,50 @@ def main() -> None:
     S_lap = to_scipy(Ab)  # explicit zeros dropped: K = 21
     csrB = csr_of(S_lap, dev, torch.float32)
     csrB64 = csr_of(S_lap, dev, torch.float32, torch.int64)
+    y1 = torch.empty_like(x)
+    one = torch.zeros(1, device=dev)
     t = {
-        "K1": median_ms(lambda: k1.const_stencil_cuda(*a1)),
-        "K1 cold L2": median_ms(lambda: k1.const_stencil_cuda(*a1), before=cold),
         "K1 plain": median_ms(lambda: k1.const_stencil_plain(*a1)),
         "K1 library": median_ms(lambda: torch.nn.functional.conv3d(x5, w3, padding=1)),
+        # yardsticks, not the same function: an elementwise kernel that moves
+        # K1's bytes (x and free read, y written once), and a launch that
+        # moves nothing (the span's own floor)
+        "K1 same-bytes add": median_ms(lambda: torch.add(x, Ac.free.reshape(-1), out=y1)),
+        "K1 same-bytes add cold": median_ms(lambda: torch.add(x, Ac.free.reshape(-1), out=y1),
+                                            before=cold),
+        "launch floor": median_ms(lambda: one.add_(1)),
         "K2 library": median_ms(lambda: torch.mv(csrB, x)),
         "K2 library int64": median_ms(lambda: torch.mv(csrB64, x)),
     }
+    # K1: the marching kernel (the wrapper's choice) and the general kernel,
+    # warm and with L2 flushed before each launch (cold, the headline: x and
+    # free at 129^3 fit in L2), on the Laplacian of each path A level in f32
+    # and at 129^3 in f64
+    k1_keys = {}
+    for m, dt in [(NC // 2 ** lv + 1, torch.float32) for lv in range(4)] + [(N1, torch.float64)]:
+        A = Ac if (m, dt) == (N1, torch.float32) else laplacian_const(mesh_of((m,) * 3), dt, dev)
+        xa = x if A is Ac else vec(A.n, dt)
+        args = (A.weights, A.free, A.offsets, A.grid_shape, xa)
+        key = "K1" if A is Ac else f"K1 {m}^3" + (" f64" if dt == torch.float64 else "")
+        k1_keys[key] = (m, dt, args)
+        t[key] = median_ms(lambda: k1.const_stencil_cuda(*args))
+        t[f"{key} cold"] = median_ms(lambda: k1.const_stencil_cuda(*args), before=cold)
+        t[f"{key} general"] = median_ms(lambda: k1.const_stencil_cuda(*args, general=True))
+        t[f"{key} general cold"] = median_ms(lambda: k1.const_stencil_cuda(*args, general=True),
+                                             before=cold)
+    # the marching kernel's run length (planes a block) at 129^3 (f32 and
+    # f64) and 65^3, cold, at the rule's tile; the rule's choice is marked
+    k1_sweep = []
+    for key in ("K1", f"K1 {N1}^3 f64", f"K1 {NC // 2 + 1}^3"):
+        m, dt, args = k1_keys[key]
+        tk, groups, rule = k1.march_tiles(args[3], dt)
+        ms = {p: median_ms(lambda: k1.const_stencil_cuda(*args, tiles=(tk, groups, p)),
+                           before=cold)
+              for p in sorted({1, 2, 4, 8, 16, 32, rule})}
+        k1_sweep.append(f"{m}^3 {str(dt)[6:]} tile {groups * k1._MARCH_ROWS[dt]}x{tk}, rule {rule} "
+                        f"planes: "
+                        + " ".join(f"P{p}{'*' if p == rule else ''} {v:.4f}"
+                                   for p, v in ms.items()))
     # K2: the box kernel (the wrapper's choice), the general kernel on the
     # same operator, and the plain version, in f32, bf16 bands and f64
     k2_args = {key: (A.bands, A.offsets, A.grid_shape, per, xx) for key, A, xx in (
@@ -564,8 +647,9 @@ def main() -> None:
         t[f"{key} general"] = median_ms(lambda: k2.banded_stencil_cuda(*args, general=True))
         t[f"{key} plain"] = median_ms(lambda: k2.banded_stencil_plain(*args))
     n = Ac.n
-    bound = {
-        "K1": 3 * 4 * n / HBM_BYTES_PER_S * 1e3,            # x, free read, y written
+    bound = {  # K1: x, free read, y written
+        **{key: 3 * args[4].element_size() * args[4].numel() / HBM_BYTES_PER_S * 1e3
+           for key, (_, _, args) in k1_keys.items()},
         "K2": (27 + 2) * 4 * n / HBM_BYTES_PER_S * 1e3,     # bands, x, y
         "K2 bf16": (27 * 2 + 2 * 4) * n / HBM_BYTES_PER_S * 1e3,
         "K2 f64": (27 + 2) * 8 * n / HBM_BYTES_PER_S * 1e3,
@@ -624,6 +708,21 @@ def main() -> None:
           + f" | {NC}^3 solve only, median of 20: A (const f32, {stA.niter} its) "
           f"{t['solve A']:.2f} ms, B (banded f64, {stB.niter} its) {t['solve B']:.2f} ms, "
           f"C (AMG f32, {stC.niter} its) {t['solve C']:.2f} ms {elapsed()}", flush=True)
+    k1_levels = dict(zip(k1_keys, levelsA))  # the four f32 levels, finest first
+    print(f"[8 K1] {card} | marching / general kernel, ms per apply, cold L2 / warm: "
+          + "; ".join(f"{k1_keys[key][0]}^3{' f64' if k1_keys[key][1] == torch.float64 else ''} "
+                      f"{t[key + ' cold']:.4f} / {t[key]:.4f} against {t[key + ' general cold']:.4f}"
+                      f" / {t[key + ' general']:.4f}, bound {bound[key]:.5f}"
+                      + (f", path A launches {k1_levels[key]}, launches x (cold - bound) "
+                         f"{k1_levels[key] * (t[key + ' cold'] - bound[key]):.4f} / "
+                         f"{k1_levels[key] * (t[key + ' general cold'] - bound[key]):.4f} ms"
+                         if key in k1_levels else "")
+                      for key in k1_keys)
+          + f" | same bytes as one elementwise add, cold / warm: "
+          f"{t['K1 same-bytes add cold']:.4f} / {t['K1 same-bytes add']:.4f}; "
+          f"launch floor {t['launch floor']:.4f}", flush=True)
+    print(f"[8 K1 run length] {card} | cold L2, ms per apply: " + "; ".join(k1_sweep),
+          flush=True)
     print(f"[8 K3 fill] real entries of the stored slots, and of the slots K3's warps step "
           f"through: " + "; ".join(fills), flush=True)
     print(f"[8 K3 lanes per row] {card} | ms per apply by group size G: " + "; ".join(sweep),
@@ -653,9 +752,17 @@ def main() -> None:
         tag: {"ms": r4(t[f"K3 {tag}"]), "bound_ms": r4(bound[f"K3 {tag}"]),
               "library_ms": r4(t[f"K3 {tag} library"]),
               "library_int64_ms": r4(t[f"K3 {tag} library int64"])} for tag in ("R0", "P0")}})
+    k1_row = row("K1", "K1 const_stencil", "gridapsolvers_tpu_torch/csrc/const_stencil.cu",
+                 "gridapsolvers_tpu/ops/stencil_pallas.py:61", "K1")
+    k1_row.update({
+        "cold_ms": t["K1 cold"], "general_ms": t["K1 general"],
+        "general_cold_ms": t["K1 general cold"], "march_launches": marchA,
+        "level_launches": {f"{k1_keys[key][0]}^3": v for key, v in k1_levels.items()},
+        **{key[3:]: {"ms": t[key], "cold_ms": t[f"{key} cold"], "general_ms": t[f"{key} general"],
+                     "general_cold_ms": t[f"{key} general cold"], "bound_ms": bound[key]}
+           for key in k1_keys if key != "K1"}})
     summary = {"kernels": [
-        row("K1", "K1 const_stencil", "gridapsolvers_tpu_torch/csrc/const_stencil.cu",
-            "gridapsolvers_tpu/ops/stencil_pallas.py:61", "K1"),
+        k1_row,
         k2_row,
         k3_row,
     ]}

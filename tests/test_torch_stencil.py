@@ -1,6 +1,8 @@
 """The port's stencil kernels K1 (constant stencil) and K2 (banded stencil),
 through their plain PyTorch versions, against the JAX package's operators
-and its Pallas kernels run in interpret mode.
+and its Pallas kernels run in interpret mode; the choice between each
+kernel's fast and general CUDA kernels, and the fast kernels' arithmetic in
+plain PyTorch.
 
 The CUDA kernels themselves need the card; `chip_smoke.py` holds them
 against these plain versions there.
@@ -9,6 +11,8 @@ Tolerances: f64 results agree to rtol 1e-12 relative to the largest
 |y| (the two packages sum the same terms in the same order, but XLA may
 fuse multiply-adds); f32 results to 1e-6 of the largest |y|.
 """
+import itertools
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -109,6 +113,163 @@ def test_const_stencil_diag_abs_row_sum():
     np.testing.assert_allclose(
         P.abs_row_sum().numpy(), np.asarray(Ac.abs_row_sum()), rtol=1e-15
     )
+
+
+def _random_dirichlet_mask(rng, grid_shape):
+    """A {0,1} mask with the whole boundary constrained and random
+    interior zeros: the Pallas twin is exact under it (its circular rolls
+    land only on constrained rows)."""
+    free = (rng.random(grid_shape) < 0.7).astype(np.float64)
+    inner = tuple(slice(1, -1) for _ in grid_shape)
+    mask = np.zeros(grid_shape)
+    mask[inner] = free[inner]
+    return mask
+
+
+@pytest.mark.parametrize("ncells", [(7, 6, 5), (10, 9)])
+def test_const_stencil_plain_random_weights_and_mask_f64(ncells):
+    """Random asymmetric weights under a mask with interior zeros (a sign
+    or axis error that the Laplacian's symmetric weights hide shows here),
+    against the JAX operator and the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(7)
+    A0 = j_laplacian_const(_unit_mesh(ncells))
+    w = rng.normal(size=len(A0.offsets))
+    free = _random_dirichlet_mask(rng, A0.grid_shape)
+    Aj = JConst(jnp.asarray(w), jnp.asarray(free), A0.offsets, A0.grid_shape)
+    x = rng.normal(size=Aj.n)
+    y_jax = np.asarray(Aj.matvec(jnp.asarray(x)))
+    y_pallas = np.asarray(pallas_const_stencil(Aj, tile=3, interpret=True).matvec(jnp.asarray(x)))
+    y = _port_const(Aj).matvec(torch.from_numpy(x)).numpy()
+    _assert_close(y, y_jax, F64_RTOL)
+    _assert_close(y, y_pallas, F64_RTOL)
+
+
+# ------------------------------------------------- K1's kernel choice -----
+
+_BOX3 = tuple(itertools.product((-1, 0, 1), repeat=3))
+
+
+def _march_apply(weights, free, x, grid_shape, planes):
+    """The marching kernel's arithmetic in plain PyTorch: output planes in
+    runs of `planes` along i; each plane q of a run and its halo planes
+    adds its in-plane sums S_a(q) = sum_{b,c} w[a,b,c] (free x)(q, j+b, k+c)
+    to output plane q - a where that plane is the run's; free x is zero
+    outside the grid."""
+    n0, n1, n2 = grid_shape
+    w = weights.reshape(3, 3, 3)
+    xg = x.reshape(grid_shape)
+    fx = torch.nn.functional.pad(free * xg, (1, 1, 1, 1, 1, 1))
+    y = torch.full(grid_shape, float("nan"), dtype=x.dtype)
+    for i0 in range(0, n0, planes):
+        i1 = min(i0 + planes, n0)
+        acc = {}
+        for q in range(i0 - 1, i1 + 1):
+            plane = fx[q + 1]
+            for a in (-1, 0, 1):
+                if i0 <= q - a < i1:
+                    s = sum(w[a + 1, b + 1, c + 1] * plane[1 + b:1 + b + n1, 1 + c:1 + c + n2]
+                            for b in (-1, 0, 1) for c in (-1, 0, 1))
+                    acc[q - a] = acc.get(q - a, 0) + s
+        for i in range(i0, i1):
+            y[i] = free[i] * acc[i] + (1 - free[i]) * xg[i]
+    return y.reshape(-1)
+
+
+@pytest.mark.parametrize("grid_shape, planes", [
+    ((2, 2, 2), 1), ((9, 7, 6), 4), ((9, 7, 6), 16), ((5, 3, 11), 2), ((13, 4, 5), None)])
+def test_march_arithmetic_matches_plain(grid_shape, planes):
+    """The marching kernel's plane-by-plane sums, with runs that split the
+    grid unevenly, a run longer than the grid and the selector's own run
+    length, reproduce the plain version for random asymmetric weights
+    under a random mask."""
+    rng = np.random.default_rng(40)
+    w = torch.from_numpy(rng.normal(size=27))
+    free = torch.from_numpy((rng.random(grid_shape) < 0.7).astype(np.float64))
+    x = torch.from_numpy(rng.normal(size=int(np.prod(grid_shape))))
+    tiles = const_stencil.march_tiles(grid_shape, torch.float64)
+    assert tiles is not None
+    ref = const_stencil.const_stencil_plain(w, free, _BOX3, grid_shape, x)
+    y = _march_apply(w, free, x, grid_shape, planes or tiles[2])
+    _assert_close(y.numpy(), ref.numpy(), F64_RTOL)
+
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_march_tiles_for_the_poisson_levels(dtype):
+    """Every grid of path A (129^3 to 17^3) takes the marching kernel, with
+    k tiles of at most 64 columns split evenly and at least two blocks an
+    SM where the grid has them."""
+    rows = {torch.float32: 4, torch.float64: 2}[dtype]
+    for m in (129, 65, 33, 17):
+        tk, groups, planes = const_stencil.march_tiles((m, m, m), dtype)
+        assert tk <= 64 and -(-m // tk) == -(-m // 64) and tk * -(-m // tk) - m < -(-m // tk)
+        assert 1 <= groups <= 3 and 1 <= planes <= m
+        blocks = -(-m // tk) * -(-m // (groups * rows)) * -(-m // planes)
+        assert blocks >= 264 or planes == 1
+    assert const_stencil.march_tiles((129, 129, 129), torch.float32) == (43, 3, 16)
+
+
+@pytest.mark.parametrize("grid_shape, dtype, march", [
+    ((129, 129), torch.float32, False),
+    ((4, 4, 4, 4), torch.float64, False),
+    ((4, 4, 4), torch.float16, False),
+    ((2, 12 * 65535, 2), torch.float32, True),
+    ((2, 12 * 65535 + 1, 2), torch.float32, False),
+    ((2, 6 * 65535 + 1, 2), torch.float64, False),
+    ((70000, 2, 2), torch.float32, True),
+    ((2, 2 ** 16, 2 ** 15), torch.float32, False),
+])
+def test_march_tiles_declines_what_it_cannot_launch(grid_shape, dtype, march):
+    """2D grids and grids past the marching kernel's launch grid (j tiles
+    on gridDim.y at most 65535, in-plane offsets in 32 bits) go to the
+    general kernel, decided from the shape and dtype alone."""
+    assert (const_stencil.march_tiles(grid_shape, dtype) is not None) == march
+
+
+def test_const_wrapper_refuses_before_any_build(monkeypatch):
+    """Marching or general, the K1 wrapper refuses a CPU tensor, a wrong
+    dtype, unsorted offsets and a 4D grid before any build or launch, and
+    counts nothing; `counts.march` resets with the rest."""
+    from gridapsolvers_tpu_torch.ops import build
+
+    def no_build(*a, **k):
+        raise AssertionError("a kernel was built or loaded")
+
+    monkeypatch.setattr(build, "function", no_build)
+    Ac = _port_const(j_laplacian_const(_unit_mesh((4, 4, 4))))
+    args = (Ac.weights, Ac.free, Ac.offsets, Ac.grid_shape)
+    x = torch.zeros(Ac.n, dtype=torch.float64)
+    before = (const_stencil.counts.kernel, const_stencil.counts.march)
+    for kw in ({}, {"general": True}, {"tiles": (5, 1, 2)}):
+        with pytest.raises(ValueError, match="CUDA"):
+            const_stencil.const_stencil_cuda(*args, x, **kw)
+    with pytest.raises(TypeError, match="dtypes"):
+        const_stencil.const_stencil_cuda(*(a.to(torch.bfloat16) if torch.is_tensor(a) else a
+                                           for a in args), x.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="sorted"):
+        const_stencil.const_stencil_cuda(Ac.weights, Ac.free, tuple(reversed(Ac.offsets)),
+                                         Ac.grid_shape, x)
+    with pytest.raises(ValueError, match="4D"):
+        const_stencil.const_stencil_cuda(Ac.weights, Ac.free, Ac.offsets, (4, 4, 2, 2), x)
+    assert (const_stencil.counts.kernel, const_stencil.counts.march) == before
+    counts = const_stencil.StencilLaunchCounts(kernel=3, plain=2, march=1)
+    counts.reset()
+    assert (counts.kernel, counts.plain, counts.march) == (0, 0, 0)
+
+
+def test_host_weights_read_once_per_tensor():
+    """The marching kernel's by-value weights are read from the tensor once
+    (a read of a CUDA tensor waits for the card), and again after an
+    in-place change."""
+    w = torch.from_numpy(np.random.default_rng(41).normal(size=27))
+    first = const_stencil._host_weights(w)
+    assert list(first) == w.tolist()
+    assert const_stencil._host_weights(w) is first
+    w.mul_(2.0)
+    second = const_stencil._host_weights(w)
+    assert second is not first and list(second) == w.tolist()
+    w32 = w.float()
+    assert list(const_stencil._host_weights(w32)) == w32.tolist()
 
 
 # ---------------------------------------------------------------- K2 -----
