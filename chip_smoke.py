@@ -11,25 +11,32 @@ through their public entry points, in phases that each print one line:
 
   1 device   card name and power limit (nvidia-smi), TF32 off
   2 build    the kernels, with build seconds and ptxas register counts
-  3 kernels  K1 (its marching and general kernels), K2 (its box and general
-             kernels) and K3 (with and without row lengths) against their
-             plain PyTorch versions on the card
+  3 kernels  K1 (its marching and general kernels; f32, f64 and bf16), K2
+             (its box and general kernels) and K3 (with and without row
+             lengths) against their plain PyTorch versions on the card
   4 path A   solve_poisson_const (constant stencils, K1), f32, 32^3 and 128^3
   5 path B   solve_poisson (banded stencils, K2), f64, 64^3 and 128^3
   6 path C   CG + smoothed-aggregation AMG (K2 finest level, K3 below and
              for every transfer), f32, 32^3 and 128^3
+  6D path D  mixed-precision GMG (bf16 K1 smoothing, f32 residuals) under
+             flexible CG, and its f32 twin, 32^3 (card = CPU) and 128^3
+  6E path E  f32 iterative refinement (banded K2 GMG-CG, two-float
+             residuals) to an f64-grade residual, 128^3
+  6F path F  FGMRES(30) + path D's mixed GMG and MINRES + path A's GMG,
+             32^3 (card = CPU) and 128^3
   7 K3 ops   K3 on path C's own 128^3 level operators, P and R (f32, bf16
              values, one f64 level) against its plain version
   8 times    per-apply kernel, plain, library and bound times (K1
              marching against general at every path A level, cold and warm
-             L2, and its run-length sweep; K2 box against general; K3 with
-             each operator's fill, read to row lengths and in full), K3's
-             lanes sweep, and each 128^3 solve
+             L2, in f32 and bf16, and its run-length sweep; K2 box against
+             general; K3 with each operator's fill, read to row lengths and
+             in full), K3's lanes sweep, and each 128^3 solve
 
 Each path's 128^3 run starts with every launch count at 0 and is read
 right after, so the counts show that every operator apply went through
-the kernels, every K1 launch through its marching kernel and every K2
-launch through its box kernel. Any failed check
+the kernels, every K1 launch through its marching kernel (in the dtype
+the code gives it: bf16 inside path D's smoothers) and every K2 launch
+through its box kernel. Any failed check
 raises, so a failure exits non-zero. The
 line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
@@ -43,6 +50,7 @@ import concurrent.futures
 import dataclasses
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -59,8 +67,18 @@ from gridapsolvers_tpu_torch.algebra import ell_from_scipy, stencil_from_scipy, 
 from gridapsolvers_tpu_torch.algebra.ell import ELLMatrix
 from gridapsolvers_tpu_torch.fem import CartesianMesh, poisson_problem
 from gridapsolvers_tpu_torch.fem.assembly import eliminate_dirichlet, laplacian, laplacian_const
-from gridapsolvers_tpu_torch.linear import AMGSolver, CGSolver, ChebyshevSmoother
-from gridapsolvers_tpu_torch.models import solve_poisson, solve_poisson_const
+from gridapsolvers_tpu_torch.linear import (
+    AMGSolver,
+    CGSolver,
+    ChebyshevSmoother,
+    DenseInverseSolver,
+    FGMRESSolver,
+    IterativeRefinementSolver,
+    MINRESSolver,
+)
+from gridapsolvers_tpu_torch.linear.gmg import gmg_from_hierarchy
+from gridapsolvers_tpu_torch.models import poisson_const_gmg, solve_poisson, solve_poisson_const
+from gridapsolvers_tpu_torch.multilevel import cartesian_hierarchy
 from gridapsolvers_tpu_torch.ops import banded_stencil as k2
 from gridapsolvers_tpu_torch.ops import build
 from gridapsolvers_tpu_torch.ops import const_stencil as k1
@@ -68,6 +86,10 @@ from gridapsolvers_tpu_torch.ops import ell_spmv as k3
 
 F32_TOL = 1e-6   # max|y - y_ref| / max|y_ref|: reordered f32 sums, FMA contraction
 F64_TOL = 1e-13
+# bf16 K1 against its plain version: both sum in f32 (in other orders) and
+# round once, so they differ by at most one bf16 ulp of max|y_ref|,
+# 2^(floor(log2 max|y_ref|) - 7), which lies between 2^-8 and 2^-7 of it
+BF16_X_TOL = 2.0 ** -8   # x of a bf16-preconditioned solve, card against CPU
 TIMING_RUNS = 30
 DEVICE = "cuda:0"
 NC = 128                 # cells per axis of the main-path runs (129^3 dofs)
@@ -75,6 +97,28 @@ ITS = {"A": (4, 4), "B": (6, 6), "C": (7, 9)}   # CG iterations asserted at NC^3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 KERNELS = ("const_stencil", "banded_stencil", "ell_spmv")
 COUNTS = {"K1": k1.counts, "K2": k2.counts, "K3": k3.counts}
+
+
+def bf16_ulp(m: float) -> float:
+    """One bf16 ulp at magnitude m (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(m)) - 7)
+
+
+@dataclasses.dataclass(frozen=True)
+class Recorded:
+    """A solver that records the iteration count of each of its solves (for
+    launch-count formulas); the solves are `inner`'s."""
+
+    inner: object
+    its: list
+
+    def setup(self, A, x=None):
+        return self.inner.setup(A, x)
+
+    def solve(self, state, b, x0=None):
+        x, stats = self.inner.solve(state, b, x0)
+        self.its.append(stats.niter)
+        return x, stats
 
 
 def relerr(y, y_ref) -> float:
@@ -304,7 +348,7 @@ def main() -> None:
     def vec(n, dtype):
         return torch.from_numpy(rng.normal(size=n)).to(dev, dtype)
 
-    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    worst = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K1 bf16": 0.0}
     lines = []
 
     def check(tag, key, y, y_ref, tol):
@@ -333,6 +377,29 @@ def main() -> None:
         y = k1.const_stencil_cuda(*args)
         assert k1.counts.march - before == int(march), f"{tag}: marching kernel taken {not march}"
         check(f"K1{tag}", "K1", y, k1.const_stencil_plain(*args), tol)
+
+    def check_k1_bf16(tag, weights, free, shape, x, march):
+        """bf16 K1 on both kernels against its plain version, within one
+        bf16 ulp of max|y|; `march`: whether the wrapper's choice is the
+        marching kernel."""
+        args = tuple(t.to(torch.bfloat16) for t in (weights, free)) + (
+            tuple(itertools.product((-1, 0, 1), repeat=len(shape))), shape,
+            x.to(torch.bfloat16))
+        y_ref = k1.const_stencil_plain(*args)
+        ulp = bf16_ulp(float(y_ref.double().abs().max()))
+        for general in (False, True):
+            before = (k1.counts.march, k1.counts.bf16)
+            y = k1.const_stencil_cuda(*args, general=general)
+            assert (k1.counts.march - before[0], k1.counts.bf16 - before[1]) == (
+                int(march and not general), 1), f"{tag}: kernel taken"
+            torch.cuda.synchronize()
+            assert y.dtype == y_ref.dtype == torch.bfloat16 and y.shape == y_ref.shape, tag
+            assert bool(torch.isfinite(y).all()), tag
+            e = abserr(y, y_ref)
+            worst["K1 bf16"] = max(worst["K1 bf16"], e)
+            which = "general" if general or not march else "march"
+            assert e <= ulp, f"K1{tag} bf16 {which}: max error {e:.3e} > one bf16 ulp {ulp:.3e}"
+            lines.append(f"K1{tag} bf16 {which} {e / ulp:.2f} ulp")
 
     def check_k2(tag, A, x, tol, box):
         """K2 on A against its plain version; `box`: whether the box kernel
@@ -376,6 +443,14 @@ def main() -> None:
                 args = (w_rand, f_rand, A.offsets, shape, x)
                 check(f"K1march=general{shape}{str(dt)[6:]}", "K1", k1.const_stencil_cuda(*args),
                       k1.const_stencil_cuda(*args, general=True), tol)
+            if dt == torch.float32:  # bf16: the same cases on both kernels
+                tag = f"[march {shape}]"
+                check_k1_bf16(f"{tag} lap", A.weights, A.free, shape, x, True)
+                check_k1_bf16(f"{tag} rand", w_rand, A.free, shape, x, True)
+                check_k1_bf16(f"{tag} rand mask", w_rand, f_rand, shape, x, True)
+    A = laplacian_const(mesh_of((N1, N1)), torch.float32, dev)
+    check_k1_bf16(f"[{N1}x{N1}] lap", A.weights, A.free, (N1, N1), vec(A.n, torch.float32),
+                  False)
     # the box kernel at edge shapes (tiles of 8 x 64 / 8 x 32 points that
     # fill no whole tile, k extents of no multiple of 32), with random bands
     # and a permuted offset table, against the plain and the general kernel
@@ -450,7 +525,8 @@ def main() -> None:
             check_k3(f"{tag} row_len G={group}]{str(v_dt)[6:]}", x, tol, vals.to(v_dt), cols,
                      ncols, row_len, group)
     print(f"[3 kernels] {len(lines)} cases within f32 {F32_TOL:.0e} / f64 {F64_TOL:.0e} "
-          f"(bf16 bands and values against the plain version on the same bf16 data): "
+          f"(bf16 bands and values against the plain version on the same bf16 data), bf16 K1 "
+          f"within one bf16 ulp of max|y| (worst {worst['K1 bf16']:.3e} abs): "
           + ", ".join(lines) + f" {elapsed()}", flush=True)
     del extra, S, Ac, Ab, A, A64, Ar, bands, x, Aell, cols, vals, row_len, w_rand, f_rand
     lines.clear()
@@ -551,6 +627,171 @@ def main() -> None:
           f"{nC3} = {lanczos}(L-2) + (n+1)((L-2)(2k+1) + 1 + 2(L-1)), K1 0, plain "
           f"launches 0 {elapsed()}", flush=True)
 
+    # ---- 6D path D: mixed-precision GMG under flexible CG ----------------
+    # the JAX bench's gmg_cg_mixed row: constant stencils, Chebyshev(4) with
+    # Gershgorin λmax, dense-inverse coarse solve, f32, bf16 smoothing
+    # (`mixed`) or the whole cycle in bf16 (mixed=False); flexible CG
+    f32, bf16 = torch.float32, torch.bfloat16
+    degD = 4
+    mixed_kw = {"f32": {}, "mixed": {"compute_dtype": bf16, "mixed": True},
+                "bf16": {"compute_dtype": bf16}}
+
+    def gmg_d(nc, levels, device, kind):
+        return poisson_const_gmg((nc,) * 3, levels, degree=degD,
+                                 coarsest_solver=DenseInverseSolver(), dtype=f32, device=device,
+                                 **mixed_kw[kind])
+
+    def solve_d(nc, levels, device, kind):
+        """CG(flexible) + path D's GMG: (problem, solver, state, x, stats,
+        true relative residual, L2 error)."""
+        prob = poisson_problem((nc,) * 3, dtype=f32, device=device)
+        A = laplacian_const(prob.mesh, f32, device)
+        cg = CGSolver(Pl=gmg_d(nc, levels, device, kind), rtol=1e-5, maxiter=40, flexible=True)
+        state = cg.setup(A)
+        x, st = cg.solve(state, prob.b)
+        rel = float(torch.linalg.norm(prob.b - A.matvec(x)) / torch.linalg.norm(prob.b))
+        return prob, cg, state, x, st, rel, float(prob.l2_error(x))
+
+    small = []
+    for variant in ("mixed", "bf16"):
+        _, _, _, x, st, rel, _ = solve_d(32, 3, dev, variant)
+        _, _, _, x_cpu, st_cpu, _, _ = solve_d(32, 3, "cpu", variant)
+        e = relerr(x.cpu(), x_cpu)
+        assert st.niter == st_cpu.niter and st.converged() and rel < 2e-5, (variant, st.niter,
+                                                                         st_cpu.niter, rel)
+        assert e <= BF16_X_TOL, f"32^3 {variant} solve: card vs CPU plain path {e:.2e}"
+        small.append(f"{variant} {st.niter} its (CPU {st_cpu.niter}), x rel diff {e:.1e}")
+    runs_d = {}
+    bf16_launches = {}
+    for variant in ("f32", "mixed"):
+        reset_counts()
+        t0 = time.perf_counter()
+        runs_d[variant] = solve_d(NC, 4, dev, variant)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[f"D {variant}"] = read_counts()
+        bf16_launches[f"D {variant}"] = k1.counts.bf16
+        _, _, _, x, st, rel, l2 = runs_d[variant]
+        n = st.niter
+        if variant == "f32":  # CG + V-cycles, and the true-residual check
+            want = (cg_gmg_applies(n, 4, degD) + 1, 0)
+        else:  # a smoothing level: 2k bf16 (smoothers) + 3 f32 (residuals, correction)
+            want = ((n + 1) * (3 * 3 + 1) + (n + 1) + 1 + (n + 1) * 3 * 2 * degD,
+                    (n + 1) * 3 * 2 * degD)
+        assert (launches[f"D {variant}"]["K1"], bf16_launches[f"D {variant}"]) == want, (
+            variant, launches[f"D {variant}"], bf16_launches[f"D {variant}"], want)
+        assert launches[f"D {variant}"]["K2"] == 1 and launches[f"D {variant}"]["K3"] == 0
+        assert st.converged() and rel < 2e-5 and l2 <= 2e-4, (variant, st.niter, st.flag, rel, l2)
+        assert x.shape == (N1 ** 3,) and x.dtype == f32 and bool(torch.isfinite(x).all())
+        small.append(f"{NC}^3 {variant}: {n} its, flag {st.flag}, true rel residual {rel:.3e}, "
+                     f"L2 {l2:.3e}, {secs:.2f} s incl. setup, K1 launches "
+                     f"{launches[f'D {variant}']['K1']} ({bf16_launches[f'D {variant}']} bf16), "
+                     f"all marching")
+    itsD = {k: v[4].niter for k, v in runs_d.items()}
+    assert itsD["mixed"] <= itsD["f32"] + 1, itsD
+    print(f"[6D path D] CG(flexible, rtol 1e-5) + GMG Chebyshev({degD}) Gershgorin, dense "
+          f"inverse, f32 / bf16 smoothing (mixed) / all bf16, 32^3/3 levels card = CPU plain "
+          f"path, {NC}^3/4 levels: " + "; ".join(small)
+          + f"; mixed its {itsD['mixed']} <= f32 its {itsD['f32']} + 1; K1 launch formulas: "
+          f"f32 (n+1)((L-1)(2k+1)+2) + 1, mixed f32 (n+1)(3(L-1)+2) + 1 and bf16 "
+          f"(n+1)(L-1)2k; K2 1 (L2 error), plain launches 0 {elapsed()}", flush=True)
+
+    # ---- 6E path E: f32 iterative refinement ------------------------------
+    # tests/test_refinement.py's linear refinement: banded Dirichlet-
+    # eliminated operators on every level (K2), Chebyshev(4) with Gershgorin
+    # λmax, dense-inverse coarse solve, CG rtol 1e-6, two refinement steps
+    probE = poisson_problem((NC,) * 3, dtype=f32, device=dev)
+    itsE = []
+    gmgE = gmg_from_hierarchy(
+        cartesian_hierarchy((NC,) * 3, 4),
+        lambda m: eliminate_dirichlet(laplacian(m, f32, dev), m.boundary_vertex_mask()),
+        smoother=ChebyshevSmoother(degree=4, eig_method="gershgorin"),
+        coarsest_solver=DenseInverseSolver(), dtype=f32, device=dev)
+    cgE = CGSolver(Pl=gmgE, rtol=1e-6, maxiter=40)
+    refE = IterativeRefinementSolver(Recorded(cgE, itsE), niter=2)
+    reset_counts()
+    t0 = time.perf_counter()
+    stateE = refE.setup(probE.A)
+    (xh, xl), (stE, rnormE) = refE.solve(stateE, probE.b)
+    torch.cuda.synchronize()
+    secsE = time.perf_counter() - t0
+    launches["E"] = read_counts()
+    itsE = list(itsE)  # the counted run's inner solves (the timed runs append more)
+    nE = sum((n + 1) * (3 * (2 * 4 + 1) + 2) for n in itsE)
+    assert launches["E"] == {"K1": 0, "K2": nE, "K3": 0}, (launches["E"], nE, itsE)
+    assert len(itsE) == 3 and stE.converged() and xh.dtype == xl.dtype == f32
+    x32, st32 = cgE.solve(stateE["inner"], probE.b)
+    A64, b64 = probE.A.astype(torch.float64), probE.b.double()
+
+    def rel64(x):
+        return float(torch.linalg.norm(b64 - A64.matvec(x)) / torch.linalg.norm(b64))
+
+    plainE, refinedE = rel64(x32.double()), rel64(xh.double() + xl.double())
+    compE = float(rnormE) / float(torch.linalg.norm(b64))
+    assert refinedE < 1e-10 and refinedE < 1e-2 * plainE, (plainE, refinedE)
+    print(f"[6E path E] IterativeRefinementSolver(CG rtol 1e-6 + banded GMG, niter=2) f32, "
+          f"{NC}^3/4 levels: inner its {itsE}, f64 relative residual of the f32 system (card, "
+          f"f64 K2 from x_hi + x_lo) {refinedE:.3e} against the plain f32 solve's {plainE:.3e} "
+          f"({st32.niter} its); compensated residual {compE:.3e}; {secsE:.2f} s incl. setup; "
+          f"K2 launches {nE} = sum over the 3 inner solves of (n+1)((L-1)(2k+1)+2), all box, "
+          f"K1 0, plain launches 0 {elapsed()}", flush=True)
+    del xh, xl, x32, A64, b64
+
+    # ---- 6F path F: FGMRES and MINRES ------------------------------------
+    def solve_f(nc, levels, device, kind):
+        prob = poisson_problem((nc,) * 3, dtype=f32, device=device)
+        A = laplacian_const(prob.mesh, f32, device)
+        if kind == "fgmres":  # right preconditioner: path D's mixed GMG
+            solver = FGMRESSolver(m=30, Pr=gmg_d(nc, levels, device, "mixed"), rtol=1e-5)
+        else:  # left SPD preconditioner: path A's f32 GMG
+            solver = MINRESSolver(Pl=poisson_const_gmg((nc,) * 3, levels, dtype=f32,
+                                                       device=device), rtol=1e-5)
+        state = solver.setup(A)
+        x, st = solver.solve(state, prob.b)
+        rel = float(torch.linalg.norm(prob.b - A.matvec(x)) / torch.linalg.norm(prob.b))
+        return prob, solver, state, x, st, float(prob.l2_error(x)), rel
+
+    runs_f = {}
+    small = []
+    for variant in ("fgmres", "minres"):
+        st = solve_f(32, 3, dev, variant)[4]
+        st_cpu = solve_f(32, 3, "cpu", variant)[4]
+        assert st.niter == st_cpu.niter and int(st.flag) == 2, (variant, st.niter, st_cpu.niter)
+        reset_counts()
+        t0 = time.perf_counter()
+        runs_f[variant] = solve_f(NC, 4, dev, variant)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[f"F {variant}"] = read_counts()
+        bf16_launches[f"F {variant}"] = k1.counts.bf16
+        _, _, _, x, stF, l2, rel = runs_f[variant]
+        n = stF.niter
+        # each count has one K1 f32 launch more: the true-residual check
+        if variant == "fgmres":  # initial and per-cycle residuals, A and one mixed V-cycle an its
+            cycles = -(-n // 30)
+            want = (2 + cycles + n + n * (3 * 3 + 1) + n * 3 * 2 * degD, n * 3 * 2 * degD)
+        else:  # the first residual and M apply, then A and M an iteration
+            want = (cg_gmg_applies(n, 4, 3) + 1, 0)
+        assert (launches[f"F {variant}"]["K1"], bf16_launches[f"F {variant}"]) == want, (
+            variant, launches[f"F {variant}"], bf16_launches[f"F {variant}"], want)
+        assert launches[f"F {variant}"]["K2"] == 1 and launches[f"F {variant}"]["K3"] == 0
+        # rtol 1e-5 solves: the true residual under 2e-5 (tests/test_gmg.py:275), and the
+        # L2 error under path A's 2e-4 for MINRES. FGMRES minimizes the residual: at 128^3
+        # it reaches rtol 1e-5 in 3 iterations, with an L2 error above 2e-4 (PERF.md)
+        assert int(stF.flag) == 2 and rel < 2e-5, (variant, n, stF.flag, rel)
+        assert variant == "fgmres" or l2 <= 2e-4, (variant, n, l2)
+        assert x.shape == (N1 ** 3,) and bool(torch.isfinite(x).all())
+        small.append(f"{variant}: 32^3/3 levels {st.niter} its (CPU plain path {st_cpu.niter}); "
+                     f"{NC}^3/4 levels {n} its, flag CONVERGED_RTOL, true rel residual "
+                     f"{rel:.3e}, L2 {l2:.3e}, {secs:.2f} s "
+                     f"incl. setup, K1 launches {launches[f'F {variant}']['K1']} "
+                     f"({bf16_launches[f'F {variant}']} bf16), all marching")
+    print(f"[6F path F] FGMRES(m=30, Pr=path D's mixed GMG, rtol 1e-5) and MINRES(Pl=path A's "
+          f"f32 GMG, rtol 1e-5): " + "; ".join(small)
+          + f"; K1 formulas (+1: the true residual): FGMRES f32 2 + cycles + n + n(3(L-1)+1), "
+          f"bf16 n(L-1)2k; MINRES (n+1)((L-1)(2k+1)+2) + 1; K2 1 (L2 error), plain launches 0 "
+          f"{elapsed()}", flush=True)
+
     # ---- 7 K3 on path C's own operators ---------------------------------
     ops = ([(f"level {i}", m) for i, m in enumerate(amg["mats"]) if i > 0]
            + [(f"P{i}", m) for i, m in enumerate(amg["P"])]
@@ -614,11 +855,17 @@ def main() -> None:
     # free at 129^3 fit in L2), on the Laplacian of each path A level in f32
     # and at 129^3 in f64
     k1_keys = {}
-    for m, dt in [(NC // 2 ** lv + 1, torch.float32) for lv in range(4)] + [(N1, torch.float64)]:
-        A = Ac if (m, dt) == (N1, torch.float32) else laplacian_const(mesh_of((m,) * 3), dt, dev)
+    dt_tag = {torch.float32: "", torch.float64: " f64", torch.bfloat16: " bf16"}
+    for m, dt in ([(NC // 2 ** lv + 1, torch.float32) for lv in range(4)] + [(N1, torch.float64)]
+                  + [(NC // 2 ** lv + 1, torch.bfloat16) for lv in range(4)]):
+        if (m, dt) == (N1, torch.float32):
+            A = Ac
+        else:  # bf16: the f32 operator's values rounded (path D's smoother copies)
+            A = laplacian_const(mesh_of((m,) * 3), torch.float32 if dt == bf16 else dt, dev)
+            A = dataclasses.replace(A, weights=A.weights.to(dt), free=A.free.to(dt))
         xa = x if A is Ac else vec(A.n, dt)
         args = (A.weights, A.free, A.offsets, A.grid_shape, xa)
-        key = "K1" if A is Ac else f"K1 {m}^3" + (" f64" if dt == torch.float64 else "")
+        key = "K1" if A is Ac else f"K1 {m}^3{dt_tag[dt]}"
         k1_keys[key] = (m, dt, args)
         t[key] = median_ms(lambda: k1.const_stencil_cuda(*args))
         t[f"{key} cold"] = median_ms(lambda: k1.const_stencil_cuda(*args), before=cold)
@@ -627,8 +874,13 @@ def main() -> None:
                                              before=cold)
     # the marching kernel's run length (planes a block) at 129^3 (f32 and
     # f64) and 65^3, cold, at the rule's tile; the rule's choice is marked
+    k1_bf16 = f"K1 {N1}^3 bf16"
+    t[f"{k1_bf16} plain"] = median_ms(lambda: k1.const_stencil_plain(*k1_keys[k1_bf16][2]))
+    x5_16, w3_16 = k1_keys[k1_bf16][2][4].reshape(1, 1, N1, N1, N1), w3.to(bf16)
+    t[f"{k1_bf16} library"] = median_ms(
+        lambda: torch.nn.functional.conv3d(x5_16, w3_16, padding=1))
     k1_sweep = []
-    for key in ("K1", f"K1 {N1}^3 f64", f"K1 {NC // 2 + 1}^3"):
+    for key in ("K1", f"K1 {N1}^3 f64", f"K1 {NC // 2 + 1}^3", k1_bf16):
         m, dt, args = k1_keys[key]
         tk, groups, rule = k1.march_tiles(args[3], dt)
         ms = {p: median_ms(lambda: k1.const_stencil_cuda(*args, tiles=(tk, groups, p)),
@@ -700,6 +952,13 @@ def main() -> None:
         t[tag] = median_ms(lambda: info["solver"].solve(info["state"], b), runs=20, warmup=2,
                            spin=False)
     t["solve C"] = median_ms(lambda: cgC.solve(stateC, probC.b), runs=20, warmup=2, spin=False)
+    for variant, (prob, solver, state, *_) in runs_d.items():
+        t[f"solve D {variant}"] = median_ms(lambda: solver.solve(state, prob.b), runs=20, warmup=2,
+                                         spin=False)
+    t["solve E"] = median_ms(lambda: refE.solve(stateE, probE.b), runs=20, warmup=2, spin=False)
+    for variant, (prob, solver, state, *_) in runs_f.items():
+        t[f"solve F {variant}"] = median_ms(lambda: solver.solve(state, prob.b), runs=20, warmup=2,
+                                         spin=False)
     print(f"[8 times] {card} | {N1}^3 stencils f32 unless said, K3 on path C's f32 operators; "
           f"median of {TIMING_RUNS} (CUDA events), ms per apply: "
           + ", ".join(f"{k} {v:.4f}" for k, v in t.items() if not k.startswith("solve"))
@@ -707,17 +966,31 @@ def main() -> None:
           + ", ".join(f"{k} {v:.4f}" for k, v in bound.items())
           + f" | {NC}^3 solve only, median of 20: A (const f32, {stA.niter} its) "
           f"{t['solve A']:.2f} ms, B (banded f64, {stB.niter} its) {t['solve B']:.2f} ms, "
-          f"C (AMG f32, {stC.niter} its) {t['solve C']:.2f} ms {elapsed()}", flush=True)
+          f"C (AMG f32, {stC.niter} its) {t['solve C']:.2f} ms, D f32 twin ({itsD['f32']} its) "
+          f"{t['solve D f32']:.2f} ms, D mixed ({itsD['mixed']} its) {t['solve D mixed']:.2f} ms, "
+          f"E refinement ({'+'.join(map(str, itsE))} inner its) {t['solve E']:.2f} ms, F FGMRES "
+          f"({runs_f['fgmres'][4].niter} its) {t['solve F fgmres']:.2f} ms, F MINRES "
+          f"({runs_f['minres'][4].niter} its) {t['solve F minres']:.2f} ms {elapsed()}",
+          flush=True)
     k1_levels = dict(zip(k1_keys, levelsA))  # the four f32 levels, finest first
+    # path D's bf16 launches by level: 2k a V-cycle on each smoothing level
+    nD = itsD["mixed"] + 1
+    k1_levels_bf16 = {f"K1 {NC // 2 ** lv + 1}^3 bf16": (nD * 2 * degD if lv < 3 else 0)
+                      for lv in range(4)}
+    assert sum(k1_levels_bf16.values()) == bf16_launches["D mixed"]
     print(f"[8 K1] {card} | marching / general kernel, ms per apply, cold L2 / warm: "
-          + "; ".join(f"{k1_keys[key][0]}^3{' f64' if k1_keys[key][1] == torch.float64 else ''} "
+          + "; ".join(f"{k1_keys[key][0]}^3{dt_tag[k1_keys[key][1]]} "
                       f"{t[key + ' cold']:.4f} / {t[key]:.4f} against {t[key + ' general cold']:.4f}"
                       f" / {t[key + ' general']:.4f}, bound {bound[key]:.5f}"
                       + (f", path A launches {k1_levels[key]}, launches x (cold - bound) "
                          f"{k1_levels[key] * (t[key + ' cold'] - bound[key]):.4f} / "
                          f"{k1_levels[key] * (t[key + ' general cold'] - bound[key]):.4f} ms"
                          if key in k1_levels else "")
+                      + (f", path D bf16 launches {k1_levels_bf16[key]}"
+                         if key in k1_levels_bf16 else "")
                       for key in k1_keys)
+          + f" | bf16 at {N1}^3: plain {t[k1_bf16 + ' plain']:.4f}, conv3d bf16 (computes "
+          f"less) {t[k1_bf16 + ' library']:.4f}"
           + f" | same bytes as one elementwise add, cold / warm: "
           f"{t['K1 same-bytes add cold']:.4f} / {t['K1 same-bytes add']:.4f}; "
           f"launch floor {t['launch floor']:.4f}", flush=True)
@@ -760,7 +1033,17 @@ def main() -> None:
         "level_launches": {f"{k1_keys[key][0]}^3": v for key, v in k1_levels.items()},
         **{key[3:]: {"ms": t[key], "cold_ms": t[f"{key} cold"], "general_ms": t[f"{key} general"],
                      "general_cold_ms": t[f"{key} general cold"], "bound_ms": bound[key]}
-           for key in k1_keys if key != "K1"}})
+           for key in k1_keys if key != "K1" and not key.endswith("bf16")}})
+    k1_row["bf16"] = {
+        "launches": sum(bf16_launches.values()), "max_abs_err": worst["K1 bf16"],
+        "ms": t[k1_bf16], "cold_ms": t[f"{k1_bf16} cold"], "general_ms": t[f"{k1_bf16} general"],
+        "general_cold_ms": t[f"{k1_bf16} general cold"], "plain_ms": t[f"{k1_bf16} plain"],
+        "bound_ms": bound[k1_bf16], "bound_by": "bytes", "library_ms": t[f"{k1_bf16} library"],
+        "level_launches": {key[3:-5]: v for key, v in k1_levels_bf16.items()},
+        **{key[3:-5]: {"ms": t[key], "cold_ms": t[f"{key} cold"],
+                       "general_ms": t[f"{key} general"],
+                       "general_cold_ms": t[f"{key} general cold"], "bound_ms": bound[key]}
+           for key in k1_levels_bf16 if key != k1_bf16}}
     summary = {"kernels": [
         k1_row,
         k2_row,

@@ -4,9 +4,11 @@ The JAX package `gridapsolvers_tpu` is the reference; this package mirrors
 its layout and names so each module has an obvious counterpart:
 
 - ``interfaces``  : solver protocol (setup/update/solve/apply/smooth),
-                    tolerances, convergence flags and solver statistics.
+                    tolerances, convergence flags, solver statistics,
+                    solver-info trees and nullspaces.
 - ``utils``       : vector algebra over tensors and tuples of tensors,
-                    device resolution.
+                    the dtype-cast walker, two-float arithmetic, device
+                    resolution.
 - ``fem``         : structured Cartesian meshes, Q1 assembly (host NumPy)
                     and the Poisson model problem.
 - ``multilevel``  : mesh hierarchies and structured grid transfers.
@@ -15,8 +17,10 @@ its layout and names so each module has an obvious counterpart:
 - ``ops``         : hand-written CUDA kernels for the stencil matvecs
                     (sources under ``csrc/``, built with nvcc at first use)
                     beside their plain PyTorch versions.
-- ``linear``      : CG, Jacobi/Richardson/Chebyshev smoothers, dense
-                    coarse solvers and geometric multigrid.
+- ``linear``      : CG, GMRES/FGMRES, MINRES, Jacobi/Richardson/Chebyshev
+                    smoothers, dense direct solvers, geometric multigrid
+                    (with a bf16 smoother or cycle), algebraic multigrid,
+                    iterative refinement and wrapper solvers.
 - ``models``      : the Poisson GMG-CG entry points.
 - ``convert``     : carries the JAX package's operators (as numpy arrays
                     plus static fields) into this package's objects.

@@ -13,11 +13,11 @@ from .stencil import StencilMatrix
 # operators the JAX package converts that this package does not have yet,
 # and the part of the port that brings them (ROADMAP.md queue 1)
 _LATER = {
-    "DenseMatrix": "the linear-stack slice (dense and block algebra)",
-    "FieldwiseOperator": "the linear-stack slice (dense and block algebra)",
-    "ColumnStack": "the linear-stack slice (dense and block algebra)",
-    "RowStack": "the linear-stack slice (dense and block algebra)",
-    "BlockOperator": "the linear-stack slice (dense and block algebra)",
+    "DenseMatrix": "the Stokes slice (dense and block algebra)",
+    "FieldwiseOperator": "the Stokes slice (dense and block algebra)",
+    "ColumnStack": "the Stokes slice (dense and block algebra)",
+    "RowStack": "the Stokes slice (dense and block algebra)",
+    "BlockOperator": "the Stokes slice (dense and block algebra)",
     "DistELLMatrix": "the distributed slice",
     "DistGraphELL": "the distributed slice",
 }

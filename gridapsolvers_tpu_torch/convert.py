@@ -16,6 +16,7 @@ from .algebra.ell import ELLMatrix
 from .algebra.stencil import ConstStencilMatrix, StencilMatrix
 from .fem.mesh import CartesianMesh
 from .fem.poisson import PoissonProblem
+from .interfaces.nullspaces import NullSpace
 from .multilevel.transfer import StructuredProlongation, StructuredRestriction
 from .utils import resolve_device
 
@@ -85,11 +86,15 @@ def ell_matrix(
 
 
 def _operator(spec: dict, device, dtype):
-    """An AMG level operator or transfer from its numpy fields: ELL
-    {"values", "cols", "ncols"} or stencil {"bands", "offsets",
-    "grid_shape", "periodic"}."""
+    """A level operator or AMG transfer from its numpy fields: ELL
+    {"values", "cols", "ncols"}, constant stencil {"weights", "free",
+    "offsets", "grid_shape"} or stencil {"bands", "offsets", "grid_shape",
+    "periodic"}."""
     if "values" in spec:
         return ell_matrix(spec["values"], spec["cols"], spec["ncols"], device=device, dtype=dtype)
+    if "weights" in spec:
+        return const_stencil_matrix(spec["weights"], spec["free"], spec["offsets"],
+                                    spec["grid_shape"], device=device, dtype=dtype)
     return stencil_matrix(spec["bands"], spec["offsets"], spec["grid_shape"],
                           spec.get("periodic"), device=device, dtype=dtype)
 
@@ -123,6 +128,54 @@ def amg_state(
         "sm": sm,
         "coarse": {"inv": _tensor(coarse_inv, device, dtype)},
     }
+
+
+def gmg_state(
+    solver,
+    mats: Sequence[dict],
+    smoothers: Sequence[dict],
+    coarse: dict,
+    P: Sequence[dict],
+    R: Sequence[dict],
+    *,
+    device=None,
+    dtype=None,
+) -> dict:
+    """The state of the port's `GMGSolver` `solver` (Chebyshev smoothers,
+    no post_smoother) from a JAX GMG state's parts in full precision: its
+    level operators (dicts for `_operator`), each smoothing level's
+    Chebyshev state {"inv_diag", "lmax", "lmin"}, the coarse solver's
+    arrays ({"inv"}, or {"lu", "piv"} with JAX's 0-based pivots, made
+    LAPACK's 1-based here), and the transfers (keyword dicts for
+    `prolongation` / `restriction`). The post smoothers share the pre
+    smoothers' states, as the port's set-up makes them. Then `solver`'s
+    own reduced-precision step runs: its `compute_dtype` twins (`mixed`)
+    or the whole state cast down, so a JAX state's bf16 copies come out
+    of its full-precision values exactly as JAX's `_tree_cast` makes
+    them."""
+    mats = [_operator(m, device, dtype) for m in mats]
+    pre = [
+        {"A": A, "inv_diag": _tensor(s["inv_diag"], device, dtype),
+         "lmax": float(s["lmax"]), "lmin": float(s["lmin"])}
+        for A, s in zip(mats[:-1], smoothers)
+    ]
+    coarse_state = {
+        k: _tensor(np.asarray(v, np.int32) + 1, device) if k == "piv" else _tensor(v, device, dtype)
+        for k, v in coarse.items()
+    }
+    return solver.reduced_state({
+        "mats": mats,
+        "pre": pre,
+        "post": pre,
+        "coarse": coarse_state,
+        "P": tuple(prolongation(**p, device=device, dtype=dtype) for p in P),
+        "R": tuple(restriction(**r, device=device, dtype=dtype) for r in R),
+    })
+
+
+def nullspace(vectors: Sequence[np.ndarray], *, device=None, dtype=None) -> NullSpace:
+    """`NullSpace` from its spanning vectors (flat arrays)."""
+    return NullSpace([_tensor(v, device, dtype) for v in vectors])
 
 
 def prolongation(

@@ -1,11 +1,27 @@
 from .cg import CGSolver, condition_estimate  # noqa: F401
-from .direct import DenseInverseSolver, DenseLUSolver  # noqa: F401
+from .gmres import AdaptiveGMRESSolver, FGMRESSolver, GMRESSolver  # noqa: F401
+from .minres import MINRESSolver  # noqa: F401
+from .direct import (  # noqa: F401
+    DenseCholeskySolver,
+    DenseInverseSolver,
+    DenseLUSolver,
+    MatrixSolver,
+)
 from .smoothers import (  # noqa: F401
     ChebyshevSmoother,
+    IdentitySolver,
     JacobiSolver,
+    RichardsonLinearSolver,
     RichardsonSmoother,
     estimate_dinv_a_lmax,
     gershgorin_dinv_a_lmax,
 )
 from .gmg import GMGSolver, gmg_from_hierarchy  # noqa: F401
+from .refinement import IterativeRefinementSolver, comp_residual  # noqa: F401
+from .wrappers import (  # noqa: F401
+    AugmentedNullspaceOperator,
+    CallbackSolver,
+    LinearSolverFromSmoother,
+    NullspaceSolver,
+)
 from .amg import AMGSolver  # noqa: F401

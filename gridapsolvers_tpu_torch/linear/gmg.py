@@ -6,6 +6,20 @@ with cycle ∈ {v, w, f} (reference gmg_v/w/f_cycle!, :468-610) and
 mode ∈ {preconditioner, solver} (reference :612-645). The level recursion
 is a Python recursion over the level count; every level operator runs its
 own kernel through its `matvec`.
+
+`matrices_fn` is the reference's GMGLinearSolverFromWeakform nonlinear
+hook (:78-94, 260-297): at setup/update the current iterate is restricted
+down the hierarchy by `solution_restrictions` and every level operator is
+reassembled from it.
+
+Mixed precision (`compute_dtype`, e.g. torch.bfloat16): with
+`mixed=False` the whole cycle runs in `compute_dtype` (the state is cast
+down after the full-precision set-up); with `mixed=True` only the smoother
+applications do (bf16 twins of the smoother states, `pre16`/`post16`),
+while residuals, corrections, transfers and the coarse solve stay in the
+working precision. A reduced-precision preconditioner varies slightly
+between applications: pair it with CGSolver(flexible=True) or FGMRES.
+Not ported: `kernelize_levels` (the ELL refresh path, with slice 4).
 """
 from __future__ import annotations
 
@@ -40,15 +54,23 @@ class GMGSolver(LinearSolver):
     """Multigrid preconditioner/solver from per-level operators.
 
     coarse_ops      : operators for levels 1..L-1 (the finest level's
-                      operator comes from setup(A))
+                      operator comes from setup(A)); alternatively give
+                      `matrices_fn`
     prolongations   : [L-1] ops, level l+1 -> l
     restrictions    : [L-1] ops, level l -> l+1 (residual mode)
     smoother        : Smoother or per-level list (used pre+post unless
                       post_smoother given)
     coarsest_solver : solver for the coarsest level
+    matrices_fn     : optional (A, x) -> list of L operators, for
+                      solution-dependent (Newton) reassembly; overrides
+                      coarse_ops
+    solution_restrictions : [L-1] solution-mode restrictions that carry the
+                      iterate to the coarser levels for `matrices_fn`
+                      (reference gmg_project_solutions!)
+    compute_dtype, mixed : reduced-precision cycle (module docstring)
     """
 
-    coarse_ops: tuple = ()
+    coarse_ops: Optional[tuple] = None
     prolongations: tuple = ()
     restrictions: tuple = ()
     smoother: Union[Smoother, Sequence[Smoother]] = None
@@ -60,6 +82,10 @@ class GMGSolver(LinearSolver):
     maxiter: int = 100
     atol: float = 1e-12
     rtol: float = 1e-8
+    matrices_fn: Optional[Callable] = None
+    solution_restrictions: Optional[tuple] = None
+    compute_dtype: Optional[torch.dtype] = None
+    mixed: bool = False
 
     def __post_init__(self):
         if self.smoother is None:
@@ -79,6 +105,13 @@ class GMGSolver(LinearSolver):
     def num_levels(self) -> int:
         return len(self.prolongations) + 1
 
+    def _level_mats(self, A, x):
+        if self.matrices_fn is not None:
+            return list(self.matrices_fn(A, x))
+        if self.coarse_ops is None:
+            raise ValueError("GMGSolver needs coarse_ops or matrices_fn")
+        return [A] + list(self.coarse_ops)
+
     def _smoothers(self):
         L = self.num_levels
         pre = _per_level(self.smoother, L - 1)
@@ -88,7 +121,17 @@ class GMGSolver(LinearSolver):
         )
         return pre, post
 
-    def _smoother_states(self, mats, old=None):
+    def project_solutions(self, x):
+        """Restrict the current iterate to every level (reference
+        gmg_project_solutions!, GMGLinearSolvers.jl:299-334)."""
+        if x is None or self.solution_restrictions is None:
+            return [x] + [None] * (self.num_levels - 1)
+        xs = [x]
+        for R in self.solution_restrictions:
+            xs.append(R.matvec(xs[-1]))
+        return xs
+
+    def _smoother_states(self, mats, xs, old=None):
         """Smoother states per level: set up, or updated from `old` (a
         GMG state). Without a post_smoother the post smoothers are the
         pre smoothers and share their states, since a second setup would
@@ -97,40 +140,77 @@ class GMGSolver(LinearSolver):
 
         def states(smoothers, key):
             if old is None:
-                return [s.setup(m) for s, m in zip(smoothers, mats)]
-            return [s.update(st, m) for s, st, m in zip(smoothers, old[key], mats)]
+                return [s.setup(m, xl) for s, m, xl in zip(smoothers, mats, xs)]
+            return [s.update(st, m, xl) for s, st, m, xl in zip(smoothers, old[key], mats, xs)]
 
         pre_states = states(pre, "pre")
         if self.post_smoother is None:
             return pre_states, pre_states
         return pre_states, states(post, "post")
 
+    def reduced_state(self, state):
+        """The state's reduced-precision copies: bf16 twins of the smoother
+        states (mixed), or the whole state cast down (the factorizations
+        above ran in full precision). Shared pre/post states stay shared."""
+        cd = self.compute_dtype
+        if cd is None:
+            return state
+        shared = state["post"] is state["pre"]
+        if self.mixed:
+            pre16 = pt.tree_cast(state["pre"], cd)
+            post16 = pre16 if shared else pt.tree_cast(state["post"], cd)
+            return {**state, "pre16": pre16, "post16": post16}
+        out = pt.tree_cast({k: v for k, v in state.items() if k != "post"}, cd)
+        out["post"] = out["pre"] if shared else pt.tree_cast(state["post"], cd)
+        return out
+
     def setup(self, A, x=None):
-        mats = [A] + list(self.coarse_ops)
-        pre_states, post_states = self._smoother_states(mats)
-        return {
+        mats = self._level_mats(A, x)
+        xs = self.project_solutions(x)
+        pre_states, post_states = self._smoother_states(mats, xs)
+        return self.reduced_state({
             "mats": mats,
             "pre": pre_states,
             "post": post_states,
-            "coarse": self.coarsest_solver.setup(mats[-1]),
+            "coarse": self.coarsest_solver.setup(mats[-1], xs[-1]),
             "P": tuple(self.prolongations),
             "R": tuple(self.restrictions),
-        }
+        })
 
     def update(self, state, A, x=None):
-        """Re-setup for a new fine matrix (reference numerical_setup!,
-        GMGLinearSolvers.jl:260-297)."""
-        mats = [A] + list(self.coarse_ops)
-        pre_states, post_states = self._smoother_states(mats, old=state)
-        return {
-            **state,
+        """Re-setup for a new fine matrix / Newton iterate (reference
+        numerical_setup!, GMGLinearSolvers.jl:260-297). Transfers that
+        carry operator-dependent state re-extract at the new level
+        operators through their `update` (reference
+        update_transfer_operator!)."""
+        mats = self._level_mats(A, x)
+        xs = self.project_solutions(x)
+        pre_states, post_states = self._smoother_states(mats, xs, old=state)
+        return self.reduced_state({
             "mats": mats,
             "pre": pre_states,
             "post": post_states,
-            "coarse": self.coarsest_solver.update(state["coarse"], mats[-1]),
-        }
+            "coarse": self.coarsest_solver.update(state["coarse"], mats[-1], xs[-1]),
+            "P": tuple(p.update(m) if hasattr(p, "update") else p
+                       for p, m in zip(state["P"], mats[:-1])),
+            "R": tuple(r.update(m) if hasattr(r, "update") else r
+                       for r, m in zip(state["R"], mats[:-1])),
+        })
 
     # -- cycles ------------------------------------------------------------
+
+    def _smooth_level(self, smoother, state, key, lev, x, r):
+        """One pre or post smoothing at `lev`. mixed: the correction comes
+        from a compute_dtype sweep at x = 0 against the residual cast down,
+        and the residual is recomputed in full precision (the smoother's
+        own reduced-precision residual is discarded)."""
+        if not (self.mixed and self.compute_dtype is not None):
+            return smoother.smooth(state[key][lev], x, r)
+        out_dtype = pt.tree_leaves(r)[0].dtype
+        r16 = pt.tree_cast(r, self.compute_dtype)
+        dx16, _ = smoother.smooth(state[key + "16"][lev], pt.zeros_like(r16), r16)
+        dx = pt.tree_cast(dx16, out_dtype)
+        return pt.add(x, dx), pt.sub(r, state["mats"][lev].matvec(dx))
 
     def _cycle(self, state, lev: int, x, r, kind: str):
         """One multigrid cycle at level `lev`, improving x and keeping the
@@ -142,14 +222,14 @@ class GMGSolver(LinearSolver):
             return pt.add(x, dx), pt.sub(r, mats[lev].matvec(dx))
 
         pre, post = self._smoothers()
-        x, r = pre[lev].smooth(state["pre"][lev], x, r)
+        x, r = self._smooth_level(pre[lev], state, "pre", lev, x, r)
         for sub_kind in {"v": ("v",), "w": ("w", "w"), "f": ("f", "v")}[kind]:
             rH = state["R"][lev].matvec(r)
             dxH, _ = self._cycle(state, lev + 1, pt.zeros_like(rH), rH, sub_kind)
             dx = state["P"][lev].matvec(dxH)
             x = pt.add(x, dx)
             r = pt.sub(r, mats[lev].matvec(dx))
-        return post[lev].smooth(state["post"][lev], x, r)
+        return self._smooth_level(post[lev], state, "post", lev, x, r)
 
     # -- solver protocol ---------------------------------------------------
 
@@ -161,6 +241,11 @@ class GMGSolver(LinearSolver):
         return x, r
 
     def apply(self, state, r):
+        if self.compute_dtype is not None and not self.mixed:
+            out_dtype = pt.tree_leaves(r)[0].dtype
+            r_lo = pt.tree_cast(r, self.compute_dtype)
+            x, _ = self.smooth(state, pt.zeros_like(r_lo), r_lo)
+            return pt.tree_cast(x, out_dtype)
         x, _ = self.smooth(state, pt.zeros_like(r), r)
         return x
 
@@ -201,7 +286,8 @@ def gmg_from_hierarchy(
     level operators (the GMGLinearSolverFromWeakform linear path,
     GMGLinearSolvers.jl:125-158). assemble(mesh) -> operator for that
     level; the finest operator is the A passed to setup(). `dtype` and
-    `device` are those of the transfer masks."""
+    `device` are those of the transfer masks; `kw` goes to GMGSolver
+    (`compute_dtype`, `mixed`, ...)."""
     from ..multilevel.transfer import setup_transfer_operators
 
     prolongs, restricts = setup_transfer_operators(

@@ -1,24 +1,53 @@
 """Smoothers and simple preconditioners.
 
-Port of the main-path part of `gridapsolvers_tpu/linear/smoothers.py`:
+Port of `gridapsolvers_tpu/linear/smoothers.py`:
 
+- IdentitySolver          ← IdentityLinearSolvers.jl (z = r)
 - JacobiSolver            ← JacobiLinearSolvers.jl (diag⁻¹)
 - RichardsonSmoother      ← RichardsonSmoothers.jl:20-38,84-98 (the GMG
                             (x, r)-updating smoothing contract)
+- RichardsonLinearSolver  ← RichardsonLinearSolvers.jl (scalar or per-dof ω)
 - ChebyshevSmoother       : matvec-only polynomial smoother on D⁻¹A, with
                             λmax from Gershgorin or Lanczos.
 
 The spectral bounds are read to the host once at setup, so the smoothing
-recurrence runs on Python floats and launches no scalar kernels.
+recurrence runs on Python floats and launches no scalar kernels. The JAX
+package keeps them as 0-d arrays of the operator's dtype and computes the
+recurrence's scalars in that dtype; the port rounds them the same way, on
+the host (`_chebyshev_coefficients`). Not ported yet: `ColoredGaussSeidel`
+and `PreconditionedChebyshevSmoother`.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Optional
 
 import torch
 
-from ..interfaces import LinearSolver, Smoother
+from ..interfaces import (
+    LinearSolver,
+    Smoother,
+    SolverTolerances,
+    init_history,
+    make_stats,
+)
 from ..utils import pytrees as pt
+from ..utils.pytrees import round_scalar
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentitySolver(LinearSolver):
+    """z = r (reference IdentityLinearSolvers.jl)."""
+
+    def setup(self, A, x=None):
+        return {}
+
+    def apply(self, state, r):
+        return r
+
+    def solve(self, state, b, x0=None):
+        return b, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +98,51 @@ class RichardsonSmoother(Smoother):
         r = pt.sub(b, state["A"].matvec(x))
         x, _ = self.smooth(state, x, r)
         return x, None
+
+
+@dataclasses.dataclass(frozen=True)
+class RichardsonLinearSolver(LinearSolver):
+    """Standalone Richardson iteration with scalar or per-dof ω
+    (reference RichardsonLinearSolvers.jl:13-23,79-106)."""
+
+    omega: object = 1.0  # float or per-dof vector
+    Pl: Optional[LinearSolver] = None
+    maxiter: int = 1000
+    atol: float = 1e-12
+    rtol: float = 1e-8
+
+    @property
+    def tols(self) -> SolverTolerances:
+        return SolverTolerances(self.maxiter, self.atol, self.rtol)
+
+    def setup(self, A, x=None):
+        return {"A": A, "Pl": self.Pl.setup(A, x) if self.Pl is not None else None}
+
+    def solve(self, state, b, x0=None):
+        A = state["A"]
+        tols = self.tols
+
+        def damp(z):
+            if isinstance(self.omega, (int, float)):
+                return pt.scale(self.omega, z)
+            return pt.mul(self.omega, z)
+
+        x = pt.zeros_like(b) if x0 is None else x0
+        r = pt.sub(b, A.matvec(x))
+        rnorm0 = pt.norm(r)
+        hist = init_history(tols.maxiter, rnorm0)
+        r0 = float(rnorm0)
+        rn, it = r0, 0
+        while not tols.finished(it, rn, r0):
+            z = self.Pl.apply(state["Pl"], r) if self.Pl is not None else r
+            dx = damp(z)
+            x = pt.add(x, dx)
+            r = pt.sub(r, A.matvec(dx))
+            rnorm = pt.norm(r)
+            hist[it + 1] = rnorm
+            it += 1
+            rn = float(rnorm)  # host sync: the stopping test
+        return x, make_stats(tols, it, rn, r0, hist)
 
 
 def gershgorin_dinv_a_lmax(A, inv_diag) -> torch.Tensor:
@@ -139,13 +213,16 @@ class ChebyshevSmoother(Smoother):
 
     def setup(self, A, x=None):
         inv_diag = pt.tree_map(lambda d: 1.0 / d, A.diag())
+        dtype = pt.tree_leaves(inv_diag)[0].dtype
         if self.eig_method == "gershgorin":
             lmax = float(gershgorin_dinv_a_lmax(A, inv_diag))
         elif self.eig_method == "lanczos":
-            lmax = float(estimate_dinv_a_lmax(A, inv_diag, self.lanczos_iters)) * self.safety
+            est = float(estimate_dinv_a_lmax(A, inv_diag, self.lanczos_iters))
+            lmax = round_scalar(est * round_scalar(self.safety, dtype), dtype)
         else:
             raise ValueError(f"unknown eig_method {self.eig_method!r}")
-        return {"A": A, "inv_diag": inv_diag, "lmax": lmax, "lmin": lmax / self.ratio}
+        lmin = round_scalar(lmax / round_scalar(self.ratio, dtype), dtype)
+        return {"A": A, "inv_diag": inv_diag, "lmax": lmax, "lmin": lmin}
 
     def update(self, state, A, x=None):
         return self.setup(A, x)
@@ -158,21 +235,16 @@ class ChebyshevSmoother(Smoother):
         """Chebyshev iteration (three-term recurrence on the residual form;
         see e.g. Adams et al., 'Parallel multigrid smoothing')."""
         A, inv_diag = state["A"], state["inv_diag"]
-        lmax, lmin = state["lmax"], state["lmin"]
-        theta = 0.5 * (lmax + lmin)
-        delta = 0.5 * (lmax - lmin)
-        sigma1 = theta / delta
-        rho = 1.0 / sigma1
-
+        inv_theta, steps = _chebyshev_coefficients(
+            state["lmax"], state["lmin"], self.degree, pt.tree_leaves(inv_diag)[0].dtype
+        )
         z = pt.mul(inv_diag, r)
-        d = pt.scale(1.0 / theta, z)
-        for _ in range(self.degree):
+        d = pt.scale(inv_theta, z)
+        for d_coef, d_scale in steps:
             x = pt.add(x, d)
             r = pt.sub(r, A.matvec(d))
-            rho_new = 1.0 / (2.0 * sigma1 - rho)
             z = pt.mul(inv_diag, r)
-            d = pt.axpby(2.0 * rho_new / delta, z, rho_new * rho, d)
-            rho = rho_new
+            d = pt.axpby(d_coef, z, d_scale, d)
         return x, r
 
     def solve(self, state, b, x0=None):
@@ -180,3 +252,23 @@ class ChebyshevSmoother(Smoother):
         r = pt.sub(b, state["A"].matvec(x))
         x, _ = self.smooth(state, x, r)
         return x, None
+
+
+@functools.lru_cache(maxsize=None)
+def _chebyshev_coefficients(lmax: float, lmin: float, degree: int, dtype):
+    """The Chebyshev recurrence's scalars: 1/θ, and for each of the `degree`
+    steps the pair (2ρ'/δ, ρ'ρ). Computed as the JAX package computes them
+    from its 0-d bounds: every operation rounded to `dtype` (exact in f64)."""
+    def r(v):
+        return round_scalar(v, dtype)
+
+    theta = r(0.5 * r(lmax + lmin))
+    delta = r(0.5 * r(lmax - lmin))
+    sigma1 = r(theta / delta)
+    rho = r(1.0 / sigma1)
+    steps = []
+    for _ in range(degree):
+        rho_new = r(1.0 / r(r(2.0 * sigma1) - rho))
+        steps.append((r(r(2.0 * rho_new) / delta), r(rho_new * rho)))
+        rho = rho_new
+    return r(1.0 / theta), tuple(steps)

@@ -1,1 +1,1 @@
-from .poisson import solve_poisson, solve_poisson_const  # noqa: F401
+from .poisson import poisson_const_gmg, solve_poisson, solve_poisson_const  # noqa: F401

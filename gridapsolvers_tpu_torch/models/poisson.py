@@ -3,7 +3,8 @@
 Port of `gridapsolvers_tpu/models/poisson.py` (reference GMGTests.jl
 poisson suite), plus `solve_poisson_const`, the port's twin of the
 configuration of the JAX package's flagship step
-(`__graft_entry__._build`/`entry`).
+(`__graft_entry__._build`/`entry`), and `poisson_const_gmg`, its
+preconditioner (also in the JAX bench's mixed-precision variant).
 """
 from __future__ import annotations
 
@@ -66,6 +67,31 @@ def _info(prob, x, solver, state):
     }
 
 
+def poisson_const_gmg(
+    ncells: Tuple[int, ...],
+    num_levels: int,
+    degree: int = 3,
+    coarsest_solver=None,
+    dtype=torch.float32,
+    device=None,
+    **kw,
+):
+    """GMG with matrix-free constant stencils on every level (kernel K1)
+    and Chebyshev(degree) smoothing with the Gershgorin λmax; the coarse
+    solve is dense LU unless `coarsest_solver` is given. `kw` goes to
+    GMGSolver: `compute_dtype=torch.bfloat16, mixed=True` makes the JAX
+    bench's `gmg_cg_mixed` preconditioner."""
+    return gmg_from_hierarchy(
+        cartesian_hierarchy(ncells, num_levels),
+        lambda mesh: laplacian_const(mesh, dtype, device),
+        smoother=ChebyshevSmoother(degree=degree, eig_method="gershgorin"),
+        coarsest_solver=coarsest_solver,
+        dtype=dtype,
+        device=device,
+        **kw,
+    )
+
+
 def solve_poisson_const(
     ncells: Tuple[int, ...],
     num_levels: int,
@@ -78,14 +104,7 @@ def solve_poisson_const(
     Returns (x, stats, info) with info
     {"l2_error", "problem", "solver", "state"}."""
     prob = poisson_problem(ncells, dtype=dtype, device=device)
-    hierarchy = cartesian_hierarchy(ncells, num_levels)
-    gmg = gmg_from_hierarchy(
-        hierarchy,
-        lambda mesh: laplacian_const(mesh, dtype, device),
-        smoother=ChebyshevSmoother(degree=3, eig_method="gershgorin"),
-        dtype=dtype,
-        device=device,
-    )
+    gmg = poisson_const_gmg(ncells, num_levels, dtype=dtype, device=device)
     solver = CGSolver(Pl=gmg, rtol=1e-5, atol=0.0, maxiter=25)
     state = solver.setup(laplacian_const(prob.mesh, dtype, device))
     x, stats = solver.solve(state, prob.b)

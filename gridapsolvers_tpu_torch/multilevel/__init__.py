@@ -1,4 +1,10 @@
-from .hierarchy import GridHierarchy, cartesian_hierarchy  # noqa: F401
+from .hierarchy import (  # noqa: F401
+    GridHierarchy,
+    cartesian_hierarchy,
+    compute_hierarchy_matrices,
+    hierarchy_from_coarse,
+    octree_cartesian_hierarchy,
+)
 from .transfer import (  # noqa: F401
     StructuredProlongation,
     StructuredRestriction,

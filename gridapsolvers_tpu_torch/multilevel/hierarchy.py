@@ -8,7 +8,7 @@ ModelHierarchies.jl:18-24,80-148).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 from ..fem.mesh import CartesianMesh
 
@@ -55,3 +55,49 @@ def cartesian_hierarchy(
     for f in _level_factors(factor, num_levels):
         meshes.append(meshes[-1].coarsen(f))
     return GridHierarchy(meshes)
+
+
+def hierarchy_from_coarse(
+    ncells_coarse: Tuple[int, ...],
+    num_levels: int,
+    domain: Optional[Tuple[float, ...]] = None,
+    factor=2,
+    periodic: Optional[Tuple[bool, ...]] = None,
+    labels=(),
+) -> GridHierarchy:
+    """Build by refining a coarse seed (the reference's primary direction,
+    ModelHierarchies.jl:127-146); `labels` are inherited by every level."""
+    dim = len(ncells_coarse)
+    if domain is None:
+        domain = tuple(x for _ in range(dim) for x in (0.0, 1.0))
+    meshes = [CartesianMesh(tuple(ncells_coarse), domain, periodic, tuple(labels))]
+    for f in _level_factors(factor, num_levels):
+        meshes.insert(0, meshes[0].refine(f))
+    return GridHierarchy(meshes)
+
+
+def octree_cartesian_hierarchy(
+    ncells_coarse: Tuple[int, ...],
+    num_levels: int,
+    domain: Optional[Tuple[float, ...]] = None,
+    num_refs_coarse: int = 0,
+    periodic: Optional[Tuple[bool, ...]] = None,
+    factor=2,
+) -> GridHierarchy:
+    """Uniform-octree hierarchy from a coarse Cartesian seed (the
+    reference's P4estCartesianModelHierarchy,
+    ext/GridapP4estExt/GridapP4estExt.jl:25-39): the seed is pre-refined
+    `num_refs_coarse` times to form the coarsest level, then refined into
+    `num_levels` levels."""
+    seed = tuple(n * (2 ** num_refs_coarse) for n in ncells_coarse)
+    return hierarchy_from_coarse(seed, num_levels, domain, factor, periodic)
+
+
+def compute_hierarchy_matrices(
+    hierarchy: GridHierarchy,
+    assemble: Callable[[CartesianMesh], object],
+) -> List[object]:
+    """Per-level operator assembly (reference FESpaceHierarchies.jl:141-174
+    compute_hierarchy_matrices): geometric rediscretization on every
+    level."""
+    return [assemble(mesh) for mesh in hierarchy.meshes]

@@ -13,6 +13,12 @@ its launch limits: every operator of the Poisson paths), the general
 kernel for anything else (2D grids among them). On a CPU tensor it runs
 `const_stencil_plain`, the plain PyTorch version (pad once, slice per
 offset, as `algebra/stencil.py:338-353` of the JAX package does).
+
+Values are f32, f64 or bf16. bf16 x, mask and weights are summed in f32
+and y is rounded to bf16 once (the port's contract for K1: bf16 values,
+f32 sums), in the kernels and in the plain version alike. The TPU kernel
+differs there by design: it sums in x's dtype (`stencil_pallas.py:45`),
+so its bf16 result rounds at every add.
 """
 from __future__ import annotations
 
@@ -33,18 +39,22 @@ from . import build
 @dataclasses.dataclass
 class StencilLaunchCounts(build.LaunchCounts):
     """Launches of K1; `march` counts those of `kernel` that took the
-    plane-marching kernel."""
+    plane-marching kernel, `bf16` those on bf16 values (either kernel)."""
 
     march: int = 0
+    bf16: int = 0
 
     def reset(self) -> None:
         super().reset()
         self.march = 0
+        self.bf16 = 0
 
 
 counts = StencilLaunchCounts()
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+# dtypes whose sums the kernels and the plain version take in a wider one
+_SUM_DTYPE = {torch.bfloat16: torch.float32}
 # general: (x, free, weights, y, dim, n0, n1, n2, stream)
 _ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + (ctypes.c_void_p,)
 # march: (x, free, y, host weights, n0, n1, n2, tk, groups, planes, stream)
@@ -53,12 +63,12 @@ _MARCH_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (ctypes.c_void_
 # row groups a tile, most columns a tile. gridDim.y and gridDim.z are each
 # at most _GRID_YZ_MAX, and in-plane byte offsets fit an int32; the kernel
 # checks the rest and refuses a tiling it cannot launch.
-_MARCH_ROWS = {torch.float32: 4, torch.float64: 2}
+_MARCH_ROWS = {torch.float32: 4, torch.float64: 2, torch.bfloat16: 4}
 _MARCH_GROUPS = 3
 _MARCH_TILE_K = 64
 # blocks a launch should have at least: two an SM of an H100 in f32, four
-# in f64 (PERF.md's run-length sweeps)
-_MARCH_BLOCKS = {torch.float32: 2 * 132, torch.float64: 4 * 132}
+# in f64 (PERF.md's run-length sweeps); bf16 sums in an f32 ring, as f32
+_MARCH_BLOCKS = {torch.float32: 2 * 132, torch.float64: 4 * 132, torch.bfloat16: 2 * 132}
 _GRID_YZ_MAX = 65535
 _INT32_MAX = 2 ** 31 - 1
 
@@ -69,7 +79,7 @@ def march_tiles(grid_shape, dtype):
     None where it does not apply (not 3D, or past its launch limits).
 
     The k extent is split into equal tiles of at most 64 columns, and the
-    j extent into tiles of 3 row groups of R rows (4 in f32, 2 in f64),
+    j extent into tiles of 3 row groups of R rows (4 in f32 and bf16, 2 in f64),
     one thread a column each. A block marches over `planes` planes of i:
     as many as leave the launch at least _MARCH_BLOCKS blocks (long runs
     sum fewer halo planes, more blocks hide more latency)."""
@@ -95,21 +105,30 @@ def _host_weights(weights):
     """`weights` as a host array for the marching kernel's by-value
     argument. Reading a CUDA tensor waits for the card, so the values are
     read once per tensor (and again after an in-place change), not once a
-    launch."""
+    launch. bf16 weights go as floats (exact): the kernel sums in f32."""
     key = id(weights)
     hit = _HOST_WEIGHTS.get(key)
     if hit is not None and hit[0]() is weights and hit[1] == weights._version:
         return hit[2]
-    ctype = ctypes.c_float if weights.dtype == torch.float32 else ctypes.c_double
-    values = (ctype * weights.numel())(*weights.tolist())
+    ctype = ctypes.c_double if weights.dtype == torch.float64 else ctypes.c_float
+    values = (ctype * weights.numel())(*weights.double().tolist())
     _HOST_WEIGHTS[key] = (weakref.ref(weights, lambda _: _HOST_WEIGHTS.pop(key, None)),
                           weights._version, values)
     return values
 
 
 def const_stencil_plain(weights, free, offsets, grid_shape, x):
-    """Plain PyTorch version: any offsets, any device."""
+    """Plain PyTorch version: any offsets, any device. bf16 inputs are
+    widened to f32, summed there and y rounded to bf16 once."""
     counts.plain += 1
+    wide = _SUM_DTYPE.get(x.dtype)
+    if wide is not None:
+        y = _plain_sum(weights.to(wide), free.to(wide), offsets, grid_shape, x.to(wide))
+        return y.to(x.dtype)
+    return _plain_sum(weights, free, offsets, grid_shape, x)
+
+
+def _plain_sum(weights, free, offsets, grid_shape, x):
     xg = x.reshape(grid_shape)
     xm = free * xg
     d = xg.ndim
@@ -142,7 +161,7 @@ def const_stencil_cuda(weights, free, offsets, grid_shape, x, general=False, til
     if x.dtype not in _SUFFIX or weights.dtype != x.dtype or free.dtype != x.dtype:
         raise TypeError(
             f"const_stencil kernel dtypes: x {x.dtype}, weights "
-            f"{weights.dtype}, free {free.dtype} (all f32 or all f64)"
+            f"{weights.dtype}, free {free.dtype} (all f32, all f64 or all bf16)"
         )
     if x.device.type != "cuda":
         raise ValueError(f"const_stencil kernel needs CUDA tensors, got {x.device}")
@@ -181,6 +200,7 @@ def const_stencil_cuda(weights, free, offsets, grid_shape, x, general=False, til
     build.check_status(name, status)
     counts.kernel += 1
     counts.march += tiles is not None
+    counts.bf16 += x.dtype == torch.bfloat16
     return y
 
 

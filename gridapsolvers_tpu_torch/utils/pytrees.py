@@ -8,6 +8,7 @@ device.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import operator
 
@@ -87,3 +88,31 @@ def unflatten_like(flat, template):
         out.append(unflatten_like(flat[off : off + n], t))
         off += n
     return type(template)(out)
+
+
+def round_scalar(v: float, dtype: torch.dtype) -> float:
+    """A Python float rounded through `dtype` (read back as a float)."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def tree_cast(tree, dtype):
+    """Cast every floating tensor of a state to `dtype`: through dicts,
+    tuples, lists and dataclass instances (operators, transfers), leaving
+    integer tensors and other values alone. Port of `_tree_cast`
+    (`gridapsolvers_tpu/linear/gmg.py:41`). A Python float, as the port
+    keeps a Chebyshev state's spectrum bounds where the JAX package keeps
+    0-d arrays that its walker casts, is rounded through `dtype`."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, float):
+        return round_scalar(tree, dtype)
+    if isinstance(tree, dict):
+        return {k: tree_cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_cast(v, dtype) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: tree_cast(getattr(tree, f.name), dtype)
+            for f in dataclasses.fields(tree) if f.init
+        })
+    return tree

@@ -243,9 +243,9 @@ def test_const_wrapper_refuses_before_any_build(monkeypatch):
     for kw in ({}, {"general": True}, {"tiles": (5, 1, 2)}):
         with pytest.raises(ValueError, match="CUDA"):
             const_stencil.const_stencil_cuda(*args, x, **kw)
-    with pytest.raises(TypeError, match="dtypes"):
-        const_stencil.const_stencil_cuda(*(a.to(torch.bfloat16) if torch.is_tensor(a) else a
-                                           for a in args), x.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="dtypes"):  # f16: no K1 entry point (bf16 has one)
+        const_stencil.const_stencil_cuda(*(a.to(torch.float16) if torch.is_tensor(a) else a
+                                           for a in args), x.to(torch.float16))
     with pytest.raises(ValueError, match="sorted"):
         const_stencil.const_stencil_cuda(Ac.weights, Ac.free, tuple(reversed(Ac.offsets)),
                                          Ac.grid_shape, x)
