@@ -12,8 +12,9 @@ through their public entry points, in phases that each print one line:
   1 device   card name and power limit (nvidia-smi), TF32 off
   2 build    the kernels, with build seconds and ptxas register counts
   3 kernels  K1 (its marching and general kernels; f32, f64 and bf16), K2
-             (its box and general kernels) and K3 (with and without row
-             lengths) against their plain PyTorch versions on the card
+             (its box and general kernels; the Stokes velocity stiffness
+             and pressure mass) and K3 (with and without row lengths; the
+             Stokes B and Bt) against their plain PyTorch versions
   4 path A   solve_poisson_const (constant stencils, K1), f32, 32^3 and 128^3
   5 path B   solve_poisson (banded stencils, K2), f64, 64^3 and 128^3
   6 path C   CG + smoothed-aggregation AMG (K2 finest level, K3 below and
@@ -24,24 +25,32 @@ through their public entry points, in phases that each print one line:
              residuals) to an f64-grade residual, 128^3
   6F path F  FGMRES(30) + path D's mixed GMG and MINRES + path A's GMG,
              32^3 (card = CPU) and 128^3
+  6G path G  plain Stokes (BASELINE config 3): Taylor-Hood Q2/Q1, FGMRES(20)
+             + upper block-triangular preconditioner (velocity GMG on
+             banded K2 levels, pressure-mass Jacobi-CG on K2), couplings B
+             and Bt on K3; 32^2 (card = CPU), solve_stokes at 16^2 (f64),
+             and 512^2 in f64 and f32
   7 K3 ops   K3 on path C's own 128^3 level operators, P and R (f32, bf16
              values, one f64 level) against its plain version
   8 times    per-apply kernel, plain, library and bound times (K1
              marching against general at every path A level, cold and warm
              L2, in f32 and bf16, and its run-length sweep; K2 box against
              general; K3 with each operator's fill, read to row lengths and
-             in full), K3's lanes sweep, and each 128^3 solve
+             in full; K2 and K3 on path G's 512^2 operators), K3's lanes
+             sweep, and each 128^3 and 512^2 solve
 
 Each path's 128^3 run starts with every launch count at 0 and is read
 right after, so the counts show that every operator apply went through
 the kernels, every K1 launch through its marching kernel (in the dtype
 the code gives it: bf16 inside path D's smoothers) and every K2 launch
-through its box kernel. Any failed check
+through its box kernel (path G's 2D operators: its general kernel). Any
+failed check
 raises, so a failure exits non-zero. The
 line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
 printing any result. `--profile DIR` adds a torch.profiler trace of one
-path C solve (kernel table in DIR, summary line printed).
+path C and one path G solve (kernel tables in DIR, summary lines
+printed).
 """
 from __future__ import annotations
 
@@ -65,8 +74,11 @@ import torch
 # package fails here, with no output
 from gridapsolvers_tpu_torch.algebra import ell_from_scipy, stencil_from_scipy, to_scipy
 from gridapsolvers_tpu_torch.algebra.ell import ELLMatrix
+from gridapsolvers_tpu_torch.blocks import BlockTriangularSolver, LinearSystemBlock, MatrixBlock
 from gridapsolvers_tpu_torch.fem import CartesianMesh, poisson_problem
 from gridapsolvers_tpu_torch.fem.assembly import eliminate_dirichlet, laplacian, laplacian_const
+from gridapsolvers_tpu_torch.fem import assembly2 as asm
+from gridapsolvers_tpu_torch.fem.stokes import stokes_problem, velocity_gmg
 from gridapsolvers_tpu_torch.linear import (
     AMGSolver,
     CGSolver,
@@ -74,15 +86,22 @@ from gridapsolvers_tpu_torch.linear import (
     DenseInverseSolver,
     FGMRESSolver,
     IterativeRefinementSolver,
+    JacobiSolver,
     MINRESSolver,
 )
 from gridapsolvers_tpu_torch.linear.gmg import gmg_from_hierarchy
-from gridapsolvers_tpu_torch.models import poisson_const_gmg, solve_poisson, solve_poisson_const
+from gridapsolvers_tpu_torch.models import (
+    poisson_const_gmg,
+    solve_poisson,
+    solve_poisson_const,
+    solve_stokes,
+)
 from gridapsolvers_tpu_torch.multilevel import cartesian_hierarchy
 from gridapsolvers_tpu_torch.ops import banded_stencil as k2
 from gridapsolvers_tpu_torch.ops import build
 from gridapsolvers_tpu_torch.ops import const_stencil as k1
 from gridapsolvers_tpu_torch.ops import ell_spmv as k3
+from gridapsolvers_tpu_torch.utils import pytrees as pt
 
 F32_TOL = 1e-6   # max|y - y_ref| / max|y_ref|: reordered f32 sums, FMA contraction
 F64_TOL = 1e-13
@@ -95,6 +114,25 @@ DEVICE = "cuda:0"
 NC = 128                 # cells per axis of the main-path runs (129^3 dofs)
 ITS = {"A": (4, 4), "B": (6, 6), "C": (7, 9)}   # CG iterations asserted at NC^3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+# path G: the JAX bench's Stokes configuration (bench.py:693-706) at NC_G^2
+# cells, its velocity GMG down to 16^2 cells (a 2 x 33^2 dense LU)
+NC_G = 512
+STOKES_RTOL = 1e-6
+# solve_stokes((16, 16), num_levels=3) in f64: FGMRES iterations of the JAX
+# package on the CPU (tests/test_torch_stokes.py holds the port equal to it)
+JAX_STOKES_16_ITS = 27
+# velocity L2 error bounds at NC_G^2 from scripts/stokes_precision_sweep.py
+# at 256^2 cells on the CPU: f64 4.519e-8 (the error does not grow as h
+# shrinks), f32 3.885e-6 times 8 (in f32 it grew ~4x per halving of h from
+# 64^2 to 256^2: the f32 rounding of u, amplified by 1/h^2)
+VEL_ERR_BOUND = {torch.float64: 4.519e-8, torch.float32: 8 * 3.885e-6}
+# the f32 run at NC_G^2 takes 69 FGMRES iterations on an H100 80GB HBM3
+# (700 W), over the bench's maxiter 60 (PERF.md section 6): it runs with
+# maxiter 120 and is held to this band around the reading
+STOKES_F32_ITS_MAX = 75
+# the 32^2 f32 solve's x, card against the CPU plain path: 3.3e-7 relative on
+# an H100 80GB HBM3 (700 W); about 30x that
+SMALL_G_TOL = 1e-5
 KERNELS = ("const_stencil", "banded_stencil", "ell_spmv")
 COUNTS = {"K1": k1.counts, "K2": k2.counts, "K3": k3.counts}
 
@@ -120,6 +158,9 @@ class Recorded:
         self.its.append(stats.niter)
         return x, stats
 
+    def apply(self, state, r):
+        return self.solve(state, r)[0]
+
 
 def relerr(y, y_ref) -> float:
     return float((y.double() - y_ref.double()).abs().max() / y_ref.double().abs().max())
@@ -134,15 +175,17 @@ def reset_counts() -> None:
         c.reset()
 
 
-def read_counts() -> dict:
+def read_counts(k2_box: bool = True) -> dict:
     """Kernel launches by kernel; raises if any plain version ran or a K1
-    or K2 launch took its general kernel."""
+    launch took its general kernel, or if a K2 launch took its general
+    kernel (`k2_box`) or its box kernel (not `k2_box`: 2D operators)."""
     plain = {k: c.plain for k, c in COUNTS.items() if c.plain}
     assert not plain, f"plain versions ran on the main path: {plain}"
     assert k1.counts.march == k1.counts.kernel, (
         f"K1 general kernel on the main path: {k1.counts.kernel - k1.counts.march} launches")
-    assert k2.counts.box == k2.counts.kernel, (
-        f"K2 general kernel on the main path: {k2.counts.kernel - k2.counts.box} launches")
+    want_box = k2.counts.kernel if k2_box else 0
+    assert k2.counts.box == want_box, (
+        f"K2 box kernel took {k2.counts.box} of {k2.counts.kernel} launches, want {want_box}")
     return {k: c.kernel for k, c in COUNTS.items()}
 
 
@@ -176,6 +219,69 @@ def cg_amg_applies(niter: int, levels: int, degree: int, lanczos: int):
     k3_count = lanczos * (levels - 2) + (niter + 1) * (
         (levels - 2) * (2 * degree + 1) + 1 + 2 * (levels - 1))
     return k2_count, k3_count
+
+
+def stokes_launches(nc: int, n: int, cg_its: list, levels: int, degree: int, lanczos: int,
+                    m: int) -> dict:
+    """Launches of one path G run at nc^2 cells, from `stokes_problem` to
+    the end of the solve (fem/stokes.py, linear/gmres.py,
+    blocks/block_solvers.py, linear/gmg.py, linear/cg.py), by kernel and
+    by the operand shape its wrapper counts (`counts.shapes`): K2 on each
+    level's Q2 velocity stiffness (25 bands on its node grid) and on the
+    Q1 pressure mass (9 bands), K3 on B (pressure rows x velocity columns),
+    Bt and the velocity mass Mu. Each velocity operator applies K2 or K3
+    once a component (two). The problem applies Mu once for the load.
+    Set-up: one Lanczos run on every smoothing level. FGMRES applies the
+    block operator (K, B and Bt) once at the start, once a restart cycle
+    and once an iteration; each of the n preconditioner applies runs the
+    pressure CG (its iterations + 1 pressure-mass applies), Bt once and one
+    V-cycle, which applies each smoothing level's operator 2k+1 times and
+    the coarsest level's once."""
+    applies = 1 + -(-n // m) + n
+    nu, npr = (2 * nc + 1) ** 2, (nc + 1) ** 2
+    k2_count = {}
+    for lev in range(levels):
+        g = 2 * (nc >> lev) + 1
+        per = n if lev == levels - 1 else lanczos + n * (2 * degree + 1)
+        k2_count[(25, g, g)] = 2 * (per + (applies if lev == 0 else 0))
+    k2_count[(9, nc + 1, nc + 1)] = sum(c + 1 for c in cg_its)
+    k3_count = {(npr, nu): 2 * applies, (nu, npr): 2 * (applies + n), (nu, nu): 2}
+    return {"K2": k2_count, "K3": k3_count}
+
+
+def stokes_rel_residual64(prob, x) -> float:
+    """||b - A x|| / ||b|| over every block, in f64 arithmetic on the card
+    (the operators' stored values and x widened to f64)."""
+    A = pt.tree_cast(prob.A, torch.float64)
+    b = pt.tree_cast(prob.b, torch.float64)
+    return float(pt.norm(pt.sub(b, A.matvec(pt.tree_cast(x, torch.float64)))) / pt.norm(b))
+
+
+def solve_g(nc, levels, dtype, device, maxiter=60):
+    """Path G through the public API: the JAX bench's Stokes configuration
+    (bench.py:693-706) at nc^2 cells with `levels` GMG levels. Returns a
+    dict with the problem, solver, state, solution, stats, each inner
+    pressure CG's iteration count and the set-up seconds by step."""
+    cg_its = []
+    t0 = time.perf_counter()
+    prob = stokes_problem((nc, nc), dtype=dtype, device=device)
+    t1 = time.perf_counter()
+    gmg = velocity_gmg((nc, nc), levels, mode="preconditioner", dtype=dtype, device=device)
+    t2 = time.perf_counter()
+    P = BlockTriangularSolver(
+        solvers=(gmg, Recorded(CGSolver(Pl=JacobiSolver(), rtol=1e-6, maxiter=30), cg_its)),
+        blocks=((LinearSystemBlock(), None), (None, MatrixBlock(prob.Mp))),
+        half="upper",
+    )
+    solver = FGMRESSolver(m=20, Pr=P, rtol=STOKES_RTOL, maxiter=maxiter)
+    state = solver.setup(prob.A)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    x, st = solver.solve(state, prob.b)
+    return {"prob": prob, "solver": solver, "state": state, "x": x, "stats": st,
+            "cg_its": cg_its, "gmg": gmg, "secs": {"assembly": t1 - t0, "hierarchy": t2 - t1,
+                                                   "setup": t3 - t2}}
 
 
 def median_ms(fn, runs=TIMING_RUNS, warmup=3, before=None, spin=True) -> float:
@@ -278,10 +384,10 @@ def solve_amg(nc, dev, maxiter=60):
     return prob, cg, state, x, st, l2, setup_s
 
 
-def profile_solve(solve, out_dir: Path) -> str:
+def profile_solve(solve, out_dir: Path, name: str) -> str:
     """torch.profiler over one solve: kernels launched, device busy time and
     the device's idle share of the traced wall time; the kernel table goes
-    to out_dir."""
+    to out_dir/profile_<name>.txt."""
     from torch.profiler import ProfilerActivity, profile
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -298,7 +404,7 @@ def profile_solve(solve, out_dir: Path) -> str:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    (out_dir / "profile_path_c.txt").write_text(
+    (out_dir / f"profile_{name}.txt").write_text(
         "\n".join(f"{us / 1e3:10.3f} ms {n:6d}  {name}" for name, (n, us) in rows) + "\n")
     top = ", ".join(f"{name[:40]} {us / 1e3:.2f} ms ({n})" for name, (n, us) in rows[:6])
     return (f"kernels launched {len(kernels)}, device busy {busy_us / 1e3:.2f} ms of "
@@ -524,6 +630,29 @@ def main() -> None:
             check_k3(f"{tag}]{str(v_dt)[6:]}", x, tol, vals.to(v_dt), cols, ncols)
             check_k3(f"{tag} row_len G={group}]{str(v_dt)[6:]}", x, tol, vals.to(v_dt), cols,
                      ncols, row_len, group)
+    # path G's operators (2D, K2's general kernel): the Q2 velocity stiffness
+    # (25 bands) and the Q1 pressure mass (9 bands) at 16^2 and NC_G^2 cells,
+    # and K3 on B (rows 2-20 long) and Bt (rows 0-7, empty at Dirichlet nodes)
+    stokes_ops = {}
+    for nc in (16, NC_G):
+        prob = stokes_problem((nc, nc), dtype=torch.float64, device=dev)
+        B, Bt = prob.A.block(1, 0).ops[0], prob.A.block(0, 1).ops[0]
+        K = prob.K.ops[0]
+        assert len(K.offsets) == 25 and len(prob.Mp.offsets) == 9
+        assert int(Bt.row_len.min()) == 0 and int(B.row_len.min()) > 0
+        for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+            for tag, A in ((f"[Stokes K {K.grid_shape}]", K),
+                           (f"[Stokes Mp {prob.Mp.grid_shape}]", prob.Mp)):
+                A = A.astype(dt)
+                check_k2(f"{tag}{str(dt)[6:]}", A, vec(A.n, dt), tol, False)
+            for tag, A in (("B", B), ("Bt", Bt)):
+                A = A.astype(dt)
+                check_ell(f"K3[Stokes {tag} {A.nrows}x{A.ncols} K={A.row_width} rows "
+                          f"{int(A.row_len.min())}-{int(A.row_len.max())} G={A.group}]"
+                          f"{str(dt)[6:]}", A, vec(A.ncols, dt), tol)
+        if nc == NC_G:
+            stokes_ops = {"K": K, "Mp": prob.Mp, "B": B, "Bt": Bt}
+        del prob
     print(f"[3 kernels] {len(lines)} cases within f32 {F32_TOL:.0e} / f64 {F64_TOL:.0e} "
           f"(bf16 bands and values against the plain version on the same bf16 data), bf16 K1 "
           f"within one bf16 ulp of max|y| (worst {worst['K1 bf16']:.3e} abs): "
@@ -792,6 +921,100 @@ def main() -> None:
           f"bf16 n(L-1)2k; MINRES (n+1)((L-1)(2k+1)+2) + 1; K2 1 (L2 error), plain launches 0 "
           f"{elapsed()}", flush=True)
 
+    # ---- 6G path G: plain Stokes ----------------------------------------
+    # the JAX bench's Stokes row (BASELINE config 3): Taylor-Hood Q2/Q1,
+    # FGMRES(20) rtol 1e-6 + upper block-triangular preconditioner, velocity
+    # GMG (Chebyshev(3) on banded Q2 levels, K2's general kernel: 25 bands in
+    # 2D) and the pressure mass (9 bands, K2) by Jacobi-CG rtol 1e-6 <= 30
+    # its; B and Bt on K3. 32^2 card = CPU (f32, 3 levels), solve_stokes at
+    # 16^2 in f64, then the counted NC_G^2 runs in f64 and in f32
+    levels_g = int(math.log2(NC_G // 16)) + 1
+    small_g = solve_g(32, 3, f32, dev)
+    small_g_cpu = solve_g(32, 3, f32, "cpu")
+    st, st_cpu = small_g["stats"], small_g_cpu["stats"]
+    assert st.niter == st_cpu.niter and int(st.flag) == int(st_cpu.flag) == 2, (
+        st.niter, st_cpu.niter, st.flag, st_cpu.flag)
+    eg = relerr(pt.ravel(small_g["x"]).cpu(), pt.ravel(small_g_cpu["x"]))
+    assert eg <= SMALL_G_TOL, f"32^2 f32 Stokes solve: card vs CPU plain path {eg:.2e}"
+    _, st16, info16 = solve_stokes((16, 16), num_levels=3, dtype=torch.float64, device=dev)
+    assert st16.niter == JAX_STOKES_16_ITS and int(st16.flag) == 2, (st16.niter, st16.flag)
+    assert info16["residual"] < 1e-7 and info16["velocity_error"] < 1e-7, info16
+    del small_g, small_g_cpu, info16
+    runs_g = {}
+    small = []
+    nu_g, np_g = (2 * NC_G + 1) ** 2, (NC_G + 1) ** 2
+    g_k3 = {"B": (np_g, nu_g), "Bt": (nu_g, np_g), "Mu": (nu_g, nu_g)}
+    for dt, maxiter in ((torch.float64, 60), (torch.float32, 120)):
+        tag = f"G f{torch.finfo(dt).bits}"
+        reset_counts()
+        t0 = time.perf_counter()
+        run = solve_g(NC_G, levels_g, dt, dev, maxiter=maxiter)
+        torch.cuda.synchronize()
+        run["secs"]["solve"] = time.perf_counter() - t0 - sum(run["secs"].values())
+        launches[tag] = read_counts(k2_box=False)
+        shapes = {"K2": dict(k2.counts.shapes), "K3": dict(k3.counts.shapes)}
+        run["cg_its"] = list(run["cg_its"])  # the counted run's (timed re-solves append)
+        runs_g[tag] = run
+        prob, x, stG = run["prob"], run["x"], run["stats"]
+        n = stG.niter
+        assert len(run["cg_its"]) == n, (len(run["cg_its"]), n)
+        # every operator's launches as counted, each equal to its formula term
+        want = stokes_launches(NC_G, n, run["cg_its"], levels_g, deg, lanczos, 20)
+        assert launches[tag]["K1"] == 0 and shapes == want, (tag, launches[tag], shapes, want)
+        run["launches"] = shapes
+        # host syncs: FGMRES reads its first residual, one a restart cycle and
+        # one an iteration; each inner CG its first residual and one an iteration
+        run["syncs"] = 1 + -(-n // 20) + n + sum(c + 1 for c in run["cg_its"])
+        assert int(stG.flag) == 2, (tag, n, stG.flag)
+        leaves = pt.tree_leaves(x)
+        assert [t.shape[0] for t in leaves] == [(2 * NC_G + 1) ** 2] * 2 + [(NC_G + 1) ** 2]
+        assert all(t.dtype == dt and bool(torch.isfinite(t).all()) for t in leaves)
+        run["rel64"] = stokes_rel_residual64(prob, x)
+        run["uerr"], run["perr"] = prob.velocity_error(x[0]), prob.pressure_error(x[1])
+        assert run["uerr"] <= VEL_ERR_BOUND[dt], (tag, run["uerr"], VEL_ERR_BOUND[dt])
+        if dt == torch.float64:
+            # the true relative block residual: under 2 rtol
+            assert run["rel64"] < 2 * STOKES_RTOL, (tag, run["rel64"])
+            x64 = x
+        else:
+            # no f32 vector gets under 2 rtol here: the f64 solution rounded
+            # to f32 leaves `floor`; the f32 solve must come within 2x of it
+            floor = stokes_rel_residual64(prob, pt.tree_cast(x64, f32))
+            run["floor"] = floor
+            assert run["rel64"] < 2 * floor, (tag, run["rel64"], floor)
+            assert n <= STOKES_F32_ITS_MAX, (tag, n, STOKES_F32_ITS_MAX)
+        cg = run["cg_its"]
+        small.append(
+            f"{NC_G}^2 {tag[2:]} (maxiter {maxiter}): {n} its, flag CONVERGED_RTOL, true rel "
+            f"residual {run['rel64']:.3e}"
+            + (f" (f32 floor: the f64 solution rounded to f32 reads {run['floor']:.3e})"
+               if "floor" in run else "")
+            + f", velocity L2 error {run['uerr']:.3e} (bound {VEL_ERR_BOUND[dt]:.3e}), pressure "
+            f"{run['perr']:.3e}; inner CG its {min(cg)}-{max(cg)} (sum {sum(cg)}); set-up s: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in run["secs"].items())
+            + f"; launches counted, each = its formula term: K2 velocity K by level "
+            + ", ".join(f"{g[1]}^2 {c}" for g, c in shapes["K2"].items() if g[0] == 25)
+            + f", pressure mass {shapes['K2'][(9, NC_G + 1, NC_G + 1)]}; K3 "
+            + ", ".join(f"{name} {shapes['K3'][key]}" for name, key in g_k3.items())
+            + f" (K2 {launches[tag]['K2']}, K3 {launches[tag]['K3']}); host syncs "
+            f"{run['syncs']}")
+    del x64
+    coarse_g = runs_g["G f64"]["state"]["Pr"]["states"][0]["mats"][-1]
+    lu_ms = median_ms(lambda: runs_g["G f64"]["gmg"].coarsest_solver.setup(coarse_g), runs=3,
+                      warmup=1, spin=False)
+    print(f"[6G path G] plain Stokes, FGMRES(20, rtol {STOKES_RTOL:.0e}) + upper block-"
+          f"triangular (velocity GMG Chebyshev(3), {levels_g} levels at {NC_G}^2; Jacobi-CG "
+          f"pressure mass rtol 1e-6 <= 30 its): 32^2/3 levels f32 card = CPU plain path "
+          f"{st.niter} its (CPU {st_cpu.niter}), x rel diff {eg:.1e}; solve_stokes 16^2/3 "
+          f"levels f64 {st16.niter} its (JAX {JAX_STOKES_16_ITS}), flag {st16.flag}; "
+          + "; ".join(small)
+          + f"; coarse dense LU ({coarse_g.shape[0]} dofs) {lu_ms:.2f} ms; formulas (c "
+          f"restart cycles, k = {deg}): K2 velocity K level 0 2({lanczos} + n(2k+1) + 1+c+n), "
+          f"levels 1..L-2 2({lanczos} + n(2k+1)), coarsest 2n, pressure mass sum(cg+1); K3 "
+          f"B 2(1+c+n), Bt 2(1+c+2n), Mu 2; every K2 launch on the general kernel, plain "
+          f"launches 0 "
+          f"{elapsed()}", flush=True)
+
     # ---- 7 K3 on path C's own operators ---------------------------------
     ops = ([(f"level {i}", m) for i, m in enumerate(amg["mats"]) if i > 0]
            + [(f"P{i}", m) for i, m in enumerate(amg["P"])]
@@ -936,6 +1159,43 @@ def main() -> None:
                      f"values + indices + row pointers {real * (vb + 4) + 4 * (A.nrows + 1)} B")
         del csr, csr64
     del csrB, csrB64, S_lap
+    # path G's operators at NC_G^2 in f32: K2's general kernel on the
+    # velocity stiffness (25 bands) and pressure mass (9 bands), K3 on B and
+    # Bt. The library yardstick is cuSPARSE on the assembled CSR (explicit
+    # zeros dropped), which also cross-checks the kernel's y
+    mesh_g = CartesianMesh((NC_G, NC_G), (0.0, 1.0, 0.0, 1.0))
+    csr_g = {"K": asm.dirichlet_square(asm.assemble_bilinear(mesh_g, 2, "stiffness"),
+                                       asm.boundary_node_mask(mesh_g, 2)),
+             "Mp": asm.assemble_bilinear(mesh_g, 1, "mass")}
+    g_keys = {}
+    for name, A in stokes_ops.items():
+        A = A.astype(f32)
+        key = f"G {name}"
+        if name in csr_g:
+            S_A = csr_g[name]
+            S_A.eliminate_zeros()
+            xg = vec(A.n, f32)
+            args = (A.bands, A.offsets, A.grid_shape, A._periodic(), xg)
+            t[key] = median_ms(lambda: k2.banded_stencil_cuda(*args))
+            t[f"{key} plain"] = median_ms(lambda: k2.banded_stencil_plain(*args))
+            y_kernel = k2.banded_stencil_cuda(*args)
+            bound[key] = (len(A.offsets) + 2) * 4 * A.n / HBM_BYTES_PER_S * 1e3
+        else:
+            S_A = to_scipy(A)
+            xg = vec(A.ncols, f32)
+            t[key] = median_ms(lambda: A.matvec(xg))
+            t[f"{key} plain"] = median_ms(lambda: k3.ell_spmv_plain(A.values, A.cols, xg,
+                                                                     A.row_len))
+            y_kernel = A.matvec(xg)
+            bound[key] = ell_bound_ms(A, xg)
+        csr, csr64 = csr_of(S_A, dev, f32), csr_of(S_A, dev, f32, torch.int64)
+        t[f"{key} library"] = median_ms(lambda: torch.mv(csr, xg))
+        t[f"{key} library int64"] = median_ms(lambda: torch.mv(csr64, xg))
+        e = relerr(y_kernel, torch.mv(csr, xg))
+        assert e <= F32_TOL, f"{key}: kernel against cuSPARSE on the assembled CSR {e:.2e}"
+        g_keys[key] = (f"{A.shape[0]}x{A.shape[1]}, {S_A.nnz} entries", e)
+        del csr, csr64
+    del csr_g
     # K3's lanes a row, read to row lengths and in full
     sweep = []
     for tag, A in k3_ops.items():
@@ -956,6 +1216,9 @@ def main() -> None:
         t[f"solve D {variant}"] = median_ms(lambda: solver.solve(state, prob.b), runs=20, warmup=2,
                                          spin=False)
     t["solve E"] = median_ms(lambda: refE.solve(stateE, probE.b), runs=20, warmup=2, spin=False)
+    for tag, run in runs_g.items():
+        t[f"solve {tag}"] = median_ms(lambda: run["solver"].solve(run["state"], run["prob"].b),
+                                      runs=5, warmup=1, spin=False)
     for variant, (prob, solver, state, *_) in runs_f.items():
         t[f"solve F {variant}"] = median_ms(lambda: solver.solve(state, prob.b), runs=20, warmup=2,
                                          spin=False)
@@ -1000,9 +1263,22 @@ def main() -> None:
           f"through: " + "; ".join(fills), flush=True)
     print(f"[8 K3 lanes per row] {card} | ms per apply by group size G: " + "; ".join(sweep),
           flush=True)
+    print(f"[8 G] {card} | path G's {NC_G}^2 operators, f32, median of {TIMING_RUNS} (CUDA "
+          f"events), ms per apply: "
+          + "; ".join(f"{key} ({desc}) kernel {t[key]:.4f}, plain {t[key + ' plain']:.4f}, "
+                      f"cuSPARSE int32 {t[key + ' library']:.4f} (int64 "
+                      f"{t[key + ' library int64']:.4f}), bound {bound[key]:.4f}, kernel vs "
+                      f"cuSPARSE y {e:.1e}" for key, (desc, e) in g_keys.items())
+          + f" | {NC_G}^2 solve only, median of 5: "
+          + ", ".join(f"{tag} ({runs_g[tag]['stats'].niter} its) {t['solve ' + tag]:.2f} ms"
+                      for tag in runs_g) + f" {elapsed()}", flush=True)
     if opts.profile is not None:
-        summary = profile_solve(lambda: cgC.solve(stateC, probC.b), opts.profile)
+        summary = profile_solve(lambda: cgC.solve(stateC, probC.b), opts.profile, "path_c")
         print(f"[profile] path C solve, {card}: {summary} {elapsed()}", flush=True)
+        for tag, run in runs_g.items():
+            summary = profile_solve(lambda: run["solver"].solve(run["state"], run["prob"].b),
+                                    opts.profile, f"path_{tag.replace(' ', '_')}")
+            print(f"[profile] path {tag} solve, {card}: {summary} {elapsed()}", flush=True)
 
     def row(key, name, source, replaces, shape_key):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1025,6 +1301,20 @@ def main() -> None:
         tag: {"ms": r4(t[f"K3 {tag}"]), "bound_ms": r4(bound[f"K3 {tag}"]),
               "library_ms": r4(t[f"K3 {tag} library"]),
               "library_int64_ms": r4(t[f"K3 {tag} library int64"])} for tag in ("R0", "P0")}})
+    def g_entry(key, kernel, shape):
+        # launches: those counted at this operand shape in path G's runs
+        return {"ms": r4(t[key]), "plain_ms": r4(t[f"{key} plain"]), "bound_ms": r4(bound[key]),
+                "library_ms": r4(t[f"{key} library"]),
+                "library_int64_ms": r4(t[f"{key} library int64"]),
+                "launches": sum(run["launches"][kernel][shape] for run in runs_g.values())}
+
+    g0, gp = 2 * NC_G + 1, NC_G + 1
+    k2_row["stokes"] = {
+        f"K 25 bands {g0}^2": g_entry("G K", "K2", (25, g0, g0)),
+        f"Mp 9 bands {gp}^2": g_entry("G Mp", "K2", (9, gp, gp)),
+        "K 25 bands, all levels launches": sum(
+            c for run in runs_g.values() for g, c in run["launches"]["K2"].items() if g[0] == 25)}
+    k3_row["stokes"] = {name: g_entry(f"G {name}", "K3", g_k3[name]) for name in ("B", "Bt")}
     k1_row = row("K1", "K1 const_stencil", "gridapsolvers_tpu_torch/csrc/const_stencil.cu",
                  "gridapsolvers_tpu/ops/stencil_pallas.py:61", "K1")
     k1_row.update({

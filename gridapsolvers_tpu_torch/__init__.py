@@ -9,19 +9,24 @@ its layout and names so each module has an obvious counterpart:
 - ``utils``       : vector algebra over tensors and tuples of tensors,
                     the dtype-cast walker, two-float arithmetic, device
                     resolution.
-- ``fem``         : structured Cartesian meshes, Q1 assembly (host NumPy)
-                    and the Poisson model problem.
-- ``multilevel``  : mesh hierarchies and structured grid transfers.
+- ``fem``         : structured Cartesian meshes, Q1 and general
+                    tensor-element assembly (host NumPy/scipy), the Poisson
+                    and Taylor-Hood Stokes model problems.
+- ``multilevel``  : mesh hierarchies, structured grid transfers and
+                    per-field transfers.
 - ``algebra``     : banded (`StencilMatrix`) and matrix-free constant
-                    (`ConstStencilMatrix`) stencil operators.
+                    (`ConstStencilMatrix`) stencil operators, padded-ELL
+                    matrices, dense and block operators.
+- ``blocks``      : block-diagonal and block-triangular preconditioners.
 - ``ops``         : hand-written CUDA kernels for the stencil matvecs
                     (sources under ``csrc/``, built with nvcc at first use)
                     beside their plain PyTorch versions.
 - ``linear``      : CG, GMRES/FGMRES, MINRES, Jacobi/Richardson/Chebyshev
                     smoothers, dense direct solvers, geometric multigrid
                     (with a bf16 smoother or cycle), algebraic multigrid,
-                    iterative refinement and wrapper solvers.
-- ``models``      : the Poisson GMG-CG entry points.
+                    iterative refinement, Schur-complement and wrapper
+                    solvers.
+- ``models``      : the Poisson GMG-CG and Stokes entry points.
 - ``convert``     : carries the JAX package's operators (as numpy arrays
                     plus static fields) into this package's objects.
 

@@ -12,10 +12,12 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .algebra.block import BlockOperator, ColumnStack, FieldwiseOperator, RowStack
 from .algebra.ell import ELLMatrix
 from .algebra.stencil import ConstStencilMatrix, StencilMatrix
 from .fem.mesh import CartesianMesh
 from .fem.poisson import PoissonProblem
+from .fem.stokes import StokesProblem
 from .interfaces.nullspaces import NullSpace
 from .multilevel.transfer import StructuredProlongation, StructuredRestriction
 from .utils import resolve_device
@@ -85,16 +87,27 @@ def ell_matrix(
     )
 
 
-def _operator(spec: dict, device, dtype):
-    """A level operator or AMG transfer from its numpy fields: ELL
-    {"values", "cols", "ncols"}, constant stencil {"weights", "free",
-    "offsets", "grid_shape"} or stencil {"bands", "offsets", "grid_shape",
-    "periodic"}."""
+_STACKS = {"column_stack": ColumnStack, "row_stack": RowStack, "fieldwise": FieldwiseOperator}
+
+
+def operator(spec: dict, *, device=None, dtype=None):
+    """An operator from its numpy fields: ELL {"values", "cols", "ncols"},
+    constant stencil {"weights", "free", "offsets", "grid_shape"}, stencil
+    {"bands", "offsets", "grid_shape", "periodic"}, or a block operator
+    whose parts are such dicts: {"blocks": rows of dicts or None},
+    {"column_stack": [...]}, {"row_stack": [...]} or {"fieldwise": [...]}."""
     if "values" in spec:
         return ell_matrix(spec["values"], spec["cols"], spec["ncols"], device=device, dtype=dtype)
     if "weights" in spec:
         return const_stencil_matrix(spec["weights"], spec["free"], spec["offsets"],
                                     spec["grid_shape"], device=device, dtype=dtype)
+    if "blocks" in spec:
+        return BlockOperator(tuple(
+            tuple(None if b is None else operator(b, device=device, dtype=dtype) for b in row)
+            for row in spec["blocks"]))
+    for key, cls in _STACKS.items():
+        if key in spec:
+            return cls(tuple(operator(o, device=device, dtype=dtype) for o in spec[key]))
     return stencil_matrix(spec["bands"], spec["offsets"], spec["grid_shape"],
                           spec.get("periodic"), device=device, dtype=dtype)
 
@@ -112,19 +125,19 @@ def amg_state(
 ) -> dict:
     """The state of an `AMGSolver` with the default Chebyshev smoother from
     a JAX AMG state's parts: its level operators, prolongations and
-    restrictions (each a dict for `_operator`), the smoothers' spectral
+    restrictions (each a dict for `operator`), the smoothers' spectral
     bounds of levels 0..L-2, and the coarsest level's dense inverse. The
     smoothers' inverse diagonals are taken from the carried operators,
     as the JAX smoother takes them (1 / diag, exact)."""
-    mats = [_operator(m, device, dtype) for m in mats]
+    mats = [operator(m, device=device, dtype=dtype) for m in mats]
     sm = [
         {"A": A, "inv_diag": 1.0 / A.diag(), "lmax": float(hi), "lmin": float(lo)}
         for A, hi, lo in zip(mats[:-1], lmax, lmin)
     ]
     return {
         "mats": mats,
-        "P": [_operator(p, device, dtype) for p in P],
-        "R": [_operator(r, device, dtype) for r in R],
+        "P": [operator(p, device=device, dtype=dtype) for p in P],
+        "R": [operator(r, device=device, dtype=dtype) for r in R],
         "sm": sm,
         "coarse": {"inv": _tensor(coarse_inv, device, dtype)},
     }
@@ -143,7 +156,7 @@ def gmg_state(
 ) -> dict:
     """The state of the port's `GMGSolver` `solver` (Chebyshev smoothers,
     no post_smoother) from a JAX GMG state's parts in full precision: its
-    level operators (dicts for `_operator`), each smoothing level's
+    level operators (dicts for `operator`), each smoothing level's
     Chebyshev state {"inv_diag", "lmax", "lmin"}, the coarse solver's
     arrays ({"inv"}, or {"lu", "piv"} with JAX's 0-based pivots, made
     LAPACK's 1-based here), and the transfers (keyword dicts for
@@ -153,7 +166,7 @@ def gmg_state(
     or the whole state cast down, so a JAX state's bf16 copies come out
     of its full-precision values exactly as JAX's `_tree_cast` makes
     them."""
-    mats = [_operator(m, device, dtype) for m in mats]
+    mats = [operator(m, device=device, dtype=dtype) for m in mats]
     pre = [
         {"A": A, "inv_diag": _tensor(s["inv_diag"], device, dtype),
          "lmax": float(s["lmax"]), "lmin": float(s["lmin"])}
@@ -225,4 +238,44 @@ def poisson_problem(
         b=_tensor(b, device, dtype),
         u_exact=_tensor(u_exact, device, dtype),
         dirichlet_mask=np.asarray(dirichlet_mask, dtype=bool),
+    )
+
+
+def stokes_problem(
+    mesh: CartesianMesh,
+    A: dict,
+    b,
+    Mu: dict,
+    Mp: dict,
+    u_exact,
+    p_exact,
+    dirichlet_mask_u: np.ndarray,
+    nu: float,
+    const_p=None,
+    *,
+    device=None,
+    dtype=None,
+) -> StokesProblem:
+    """`StokesProblem` from the JAX problem's operators (dicts for
+    `operator`), its vectors as numpy arrays (b as ((b_u0, .., b_ud), b_p),
+    u_exact a tuple or None, p_exact and const_p arrays or None) and its
+    static fields."""
+    def vec(v):
+        if v is None:
+            return None
+        if isinstance(v, (tuple, list)):
+            return tuple(vec(vi) for vi in v)
+        return _tensor(v, device, dtype)
+
+    return StokesProblem(
+        mesh=mesh,
+        A=operator(A, device=device, dtype=dtype),
+        b=vec(b),
+        Mu=operator(Mu, device=device, dtype=dtype),
+        Mp=operator(Mp, device=device, dtype=dtype),
+        u_exact=vec(u_exact),
+        p_exact=vec(p_exact),
+        dirichlet_mask_u=np.asarray(dirichlet_mask_u, dtype=bool),
+        nu=float(nu),
+        const_p=vec(const_p),
     )

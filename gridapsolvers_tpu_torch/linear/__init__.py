@@ -25,3 +25,4 @@ from .wrappers import (  # noqa: F401
     NullspaceSolver,
 )
 from .amg import AMGSolver  # noqa: F401
+from .schur import SchurComplementSolver  # noqa: F401

@@ -1,1 +1,2 @@
 from .poisson import poisson_const_gmg, solve_poisson, solve_poisson_const  # noqa: F401
+from .stokes import solve_stokes  # noqa: F401

@@ -11,3 +11,4 @@ from .transfer import (  # noqa: F401
     free_mask,
     setup_transfer_operators,
 )
+from .multifield import MultiFieldTransfer  # noqa: F401

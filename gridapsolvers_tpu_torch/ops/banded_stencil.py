@@ -179,6 +179,7 @@ def banded_stencil_cuda(bands, offsets, grid_shape, periodic, x, general=False):
             )
     build.check_status(name, status)
     counts.kernel += 1
+    counts.shapes[(S, *map(int, grid_shape))] += 1
     counts.box += perm is not None
     return y
 

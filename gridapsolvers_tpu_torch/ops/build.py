@@ -8,6 +8,7 @@ a changed source is rebuilt and an unchanged one is loaded as it is.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -31,14 +32,18 @@ NVCC_FLAGS = (
 @dataclasses.dataclass
 class LaunchCounts:
     """Launches of one kernel (`kernel`) and of its plain PyTorch version
-    (`plain`). Each wrapper adds one where it launches, and nowhere else."""
+    (`plain`); `shapes` splits `kernel` by the operand shape the wrapper
+    names (a grid, a band count, rows and columns). Each wrapper adds one
+    where it launches, and nowhere else."""
 
     kernel: int = 0
     plain: int = 0
+    shapes: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
     def reset(self) -> None:
         self.kernel = 0
         self.plain = 0
+        self.shapes.clear()
 
 
 def _nvcc() -> str:

@@ -199,6 +199,7 @@ def const_stencil_cuda(weights, free, offsets, grid_shape, x, general=False, til
             )
     build.check_status(name, status)
     counts.kernel += 1
+    counts.shapes[tuple(map(int, grid_shape))] += 1
     counts.march += tiles is not None
     counts.bf16 += x.dtype == torch.bfloat16
     return y

@@ -102,6 +102,7 @@ def ell_spmv_cuda(values, cols, x, ncols=None, group=None, row_len=None):
         )
     build.check_status(name, status)
     counts.kernel += 1
+    counts.shapes[(nrows, ncols)] += 1
     return y
 
 

@@ -136,7 +136,7 @@ def test_to_scipy_refuses_other_operators():
     with pytest.raises(TypeError, match="ConstStencilMatrix"):
         to_scipy(A)
     with pytest.raises(TypeError, match="later|slice"):
-        to_scipy(type("BlockOperator", (), {})())
+        to_scipy(type("DistELLMatrix", (), {})())
 
 
 # ------------------------------------------------- ELLMatrix operations -----
