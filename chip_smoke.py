@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds the three hand-written kernels from `gridapsolvers_tpu_torch/csrc/`
 (nvcc, sm_90a, all three at once) and drives the port's Poisson paths
-through their public entry points, in phases that each print one line:
+and Stokes paths through their public entry points, in phases that each
+print one line:
 
   1 device   card name and power limit (nvidia-smi), TF32 off
   2 build    the kernels, with build seconds and ptxas register counts
@@ -30,14 +31,25 @@ through their public entry points, in phases that each print one line:
              banded K2 levels, pressure-mass Jacobi-CG on K2), couplings B
              and Bt on K3; 32^2 (card = CPU), solve_stokes at 16^2 (f64),
              and 512^2 in f64 and f32
+  6H path H  augmented-Lagrangian Stokes (grad-div alpha 1e3, Q2/P1disc):
+             the bench's f32 run at 96^2 (card = CPU, and one V-cycle card
+             against CPU on the same operators); H2, solve_stokes at 64^2
+             (block engine: banded K2 levels, batched Vanka, ELL FE
+             transfers on K3; card = CPU, and the flat engine's iterations
+             equal to it); H1, the flat engine (every velocity block, the
+             materialized Vanka, the patch prolongations, B, Bt and Mp on K3)
+             at 512^2 in f64, its launches counted by block in set-up and
+             solve; then K3 on every block of every level and K2 on the
+             25-band blocks of H1 and H2 against their plain versions
   7 K3 ops   K3 on path C's own 128^3 level operators, P and R (f32, bf16
              values, one f64 level) against its plain version
   8 times    per-apply kernel, plain, library and bound times (K1
              marching against general at every path A level, cold and warm
              L2, in f32 and bf16, and its run-length sweep; K2 box against
              general; K3 with each operator's fill, read to row lengths and
-             in full; K2 and K3 on path G's 512^2 operators), K3's lanes
-             sweep, and each 128^3 and 512^2 solve
+             in full; K2 and K3 on path G's 512^2 operators; K3 on path H's
+             512^2 operators and K2 on its banded blocks), K3's lanes sweep,
+             and each 128^3 and 512^2 solve
 
 Each path's 128^3 run starts with every launch count at 0 and is read
 right after, so the counts show that every operator apply went through
@@ -49,12 +61,12 @@ raises, so a failure exits non-zero. The
 line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
 printing any result. `--profile DIR` adds a torch.profiler trace of one
-path C and one path G solve (kernel tables in DIR, summary lines
-printed).
+path C, G and H solve each (kernel tables in DIR, summary lines printed).
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import dataclasses
 import itertools
@@ -72,8 +84,16 @@ import torch
 
 # imported before anything is printed: a copy of this script without the
 # package fails here, with no output
+import gridapsolvers_tpu_torch.algebra.flat as flat_mod
+import gridapsolvers_tpu_torch.fem.stokes as stokes_mod
+import gridapsolvers_tpu_torch.multilevel.transfer as transfer_mod
+import gridapsolvers_tpu_torch.patches.topology as topology_mod
+from gridapsolvers_tpu_torch import native
 from gridapsolvers_tpu_torch.algebra import ell_from_scipy, stencil_from_scipy, to_scipy
+from gridapsolvers_tpu_torch.algebra.block import ColumnStack, RowStack
 from gridapsolvers_tpu_torch.algebra.ell import ELLMatrix
+from gridapsolvers_tpu_torch.algebra.flat import BlockedKernelOperator
+from gridapsolvers_tpu_torch.algebra.stencil import StencilMatrix
 from gridapsolvers_tpu_torch.blocks import BlockTriangularSolver, LinearSystemBlock, MatrixBlock
 from gridapsolvers_tpu_torch.fem import CartesianMesh, poisson_problem
 from gridapsolvers_tpu_torch.fem.assembly import eliminate_dirichlet, laplacian, laplacian_const
@@ -84,10 +104,12 @@ from gridapsolvers_tpu_torch.linear import (
     CGSolver,
     ChebyshevSmoother,
     DenseInverseSolver,
+    DenseLUSolver,
     FGMRESSolver,
     IterativeRefinementSolver,
     JacobiSolver,
     MINRESSolver,
+    PreconditionedChebyshevSmoother,
 )
 from gridapsolvers_tpu_torch.linear.gmg import gmg_from_hierarchy
 from gridapsolvers_tpu_torch.models import (
@@ -101,6 +123,7 @@ from gridapsolvers_tpu_torch.ops import banded_stencil as k2
 from gridapsolvers_tpu_torch.ops import build
 from gridapsolvers_tpu_torch.ops import const_stencil as k1
 from gridapsolvers_tpu_torch.ops import ell_spmv as k3
+from gridapsolvers_tpu_torch.patches import MaterializedVankaSmoother, VankaSolver
 from gridapsolvers_tpu_torch.utils import pytrees as pt
 
 F32_TOL = 1e-6   # max|y - y_ref| / max|y_ref|: reordered f32 sums, FMA contraction
@@ -133,6 +156,44 @@ STOKES_F32_ITS_MAX = 75
 # the 32^2 f32 solve's x, card against the CPU plain path: 3.3e-7 relative on
 # an H100 80GB HBM3 (700 W); about 30x that
 SMALL_G_TOL = 1e-5
+# path H: the augmented-Lagrangian Stokes configuration of the JAX bench
+# (bench.py:751-786: grad-div alpha 1e3, Q2/P1disc, flat engine, Chebyshev(4)
+# over the materialized Vanka, FGMRES(20) rtol 1e-8 <= 30 its) at NC_H^2
+# cells in f64, its velocity GMG down to 16^2 cells (a 2 x 33^2 dense LU)
+NC_H = 512
+GD_ALPHA = 1e3
+GD_RTOL = 1e-8
+GD_MAXITER = 30
+# FGMRES iterations at NC_H^2: 8 on an H100 80GB HBM3 (700 W), as in the
+# CPU sweep at every size (scripts/stokes_graddiv_sweep.py); the band reaches
+# to the JAX package's counts in BENCH_* (8 and 10 at 64^2, 10 at 96^2)
+H_ITS = (7, 10)
+# velocity and pressure L2 error bounds at NC_H^2: twice the port's f64
+# errors at 256^2 cells on the CPU (scripts/stokes_graddiv_sweep.py --to16:
+# 1.1831e-11 and 3.3029e-8). The exact pressure is linear, so P1disc holds
+# it and what is left is mostly the solve's: from 64^2 to 256^2 the pressure
+# error moved with the final residual ratio (5.2e-9 to 5.9e-9 there, up to
+# twice that within rtol 1e-8), not with h
+H_VEL_ERR_BOUND = 2 * 1.1831e-11
+H_PRE_ERR_BOUND = 2 * 3.3029e-8
+# the bench's own f32 run: its size (stokes_graddiv_nc 96 in BENCH_FULL_r04)
+# and 3 levels, card = CPU
+NC_H_F32, LEVELS_H_F32 = 96, 3
+# its x against the f64 solution: the card's error may exceed the CPU's by
+# this much of max|x| (on an H100 80GB HBM3, 700 W, the card's x and the
+# CPU's differed by 1.98e-3 of max|x|)
+H_F32_TOL = 1e-3
+# one V-cycle of that run's velocity GMG on the same operators and input,
+# card against CPU. In f32 the CPU's own cycle departs from the same cycle in
+# f64 arithmetic by 7.55e-5 of max|y| at 96^2 (the coarse LU amplifies
+# rounding), so two f32 cycles that sum in other orders may differ by about
+# twice that: 4x the reading. Widened to f64, the same amplification
+# (7.55e-5 over f32's 6e-8, ~1.3e3) of f64 rounding gives ~1.4e-13: 1e-10
+H_VCYCLE_F32_TOL = 3e-4
+H_VCYCLE_F64_TOL = 1e-10
+# path H2: solve_stokes((NC_H2, NC_H2), graddiv_alpha=1e3) (block engine), f64
+NC_H2 = 64
+H2_TOL = 1e-8        # its x, card against CPU (atomic scatter sums on the card)
 KERNELS = ("const_stencil", "banded_stencil", "ell_spmv")
 COUNTS = {"K1": k1.counts, "K2": k2.counts, "K3": k3.counts}
 
@@ -282,6 +343,256 @@ def solve_g(nc, levels, dtype, device, maxiter=60):
     return {"prob": prob, "solver": solver, "state": state, "x": x, "stats": st,
             "cg_its": cg_its, "gmg": gmg, "secs": {"assembly": t1 - t0, "hierarchy": t2 - t1,
                                                    "setup": t3 - t2}}
+
+
+class StepTimes:
+    """Set-up seconds by step while active: wraps the functions and methods
+    that make each step and charges each call's time, less that of the
+    steps nested in it, to its step (the card synchronized at both ends).
+    Steps: assembly (host FE assembly and banding), patch topologies (host
+    index tables), flat blocks (the ELL
+    field blocks of every flat operator), Vanka extraction and inversion,
+    materialization (M_vanka's blocks and refresh plan), transfers, λmax
+    (the power iterations), LU (the coarse factorization)."""
+
+    STEPS = (
+        ("assembly", stokes_mod, "stokes_problem"),
+        ("assembly", stokes_mod, "graddiv_velocity_block"),
+        ("patch topologies", stokes_mod, "_vertex_star_topology"),
+        ("patch topologies", topology_mod, "coarse_cell_patches"),
+        ("flat blocks", flat_mod, "flat_kernel_operator"),
+        ("Vanka extraction and inversion", VankaSolver, "setup"),
+        ("materialization", MaterializedVankaSmoother, "setup"),
+        ("transfers", transfer_mod, "fe_transfer_pair_dense"),
+        ("transfers", transfer_mod, "fe_transfer_pair"),
+        ("λmax", PreconditionedChebyshevSmoother, "_lmax"),
+        ("LU", DenseLUSolver, "setup"),
+    )
+
+    def __init__(self, device):
+        self.secs = collections.Counter()
+        self._cuda = torch.device(device).type == "cuda"
+        self._stack = []
+        self._saved = []
+
+    def _wrap(self, step, fn):
+        def timed(*args, **kwargs):
+            if self._cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self._stack.append(0.0)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                if self._cuda:
+                    torch.cuda.synchronize()
+                total = time.perf_counter() - t0
+                nested = self._stack.pop()
+                self.secs[step] += total - nested
+                if self._stack:
+                    self._stack[-1] += total
+        return timed
+
+    def __enter__(self):
+        for step, owner, name in self.STEPS:
+            fn = owner.__dict__[name]
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(step, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved.clear()
+
+
+def ell_blocks(op) -> list:
+    """The ELLMatrix blocks an operator applies (K3 launches an apply)."""
+    if isinstance(op, ELLMatrix):
+        return [op]
+    if isinstance(op, BlockedKernelOperator):
+        return [b for row in op.kblocks for b in row if b is not None]
+    if isinstance(op, (ColumnStack, RowStack)):
+        return [b for o in op.ops for b in ell_blocks(o)]
+    raise TypeError(f"no ELL blocks in {type(op).__name__}")
+
+
+def kernel_leaves(tree, out=None) -> list:
+    """Every ELLMatrix (K3) and StencilMatrix (K2) reachable from an
+    operator or a solver state, through dicts, sequences and dataclass
+    fields, each once."""
+    out = [] if out is None else out
+    if isinstance(tree, (ELLMatrix, StencilMatrix)):
+        if not any(tree is o for o in out):
+            out.append(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            kernel_leaves(v, out)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            kernel_leaves(v, out)
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            kernel_leaves(getattr(tree, f.name), out)
+    return out
+
+
+def tree_to(tree, device):
+    """Move every tensor of a solver or state to `device`, through dicts,
+    sequences and dataclass fields, as `pt.tree_cast` walks them."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_to(v, device) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{f.name: tree_to(getattr(tree, f.name), device)
+                                            for f in dataclasses.fields(tree) if f.init})
+    return tree
+
+
+class BlockCounts:
+    """K3 launches by ELL block while active: wraps `ELLMatrix.matvec`
+    (the only caller of K3's wrapper) and counts each block's applies in
+    the current `phase`, keeping every block it saw so that an id stays
+    its block's."""
+
+    def __init__(self):
+        self.seen = {}
+        self.counts = collections.Counter()
+        self.phase = "set-up"
+
+    def __enter__(self):
+        self._matvec = ELLMatrix.matvec
+
+        def counted(blk, x, _apply=self._matvec):
+            self.seen[id(blk)] = blk
+            self.counts[self.phase, id(blk)] += 1
+            return _apply(blk, x)
+        ELLMatrix.matvec = counted
+        return self
+
+    def __exit__(self, *exc):
+        ELLMatrix.matvec = self._matvec
+
+    def of(self, blocks, phase) -> int:
+        """Applies of `blocks` counted in `phase`."""
+        return sum(self.counts[phase, id(b)] for b in blocks)
+
+    def by_shape(self) -> dict:
+        """Every counted apply by its block's (rows, columns)."""
+        out = collections.Counter()
+        for (_, key), c in self.counts.items():
+            out[self.seen[key].shape] += c
+        return dict(out)
+
+
+def setup_h(nc, levels, dtype, device, engine="flat", cheby=4, m=20, rtol=GD_RTOL,
+            maxiter=GD_MAXITER, cg_rtol=1e-6, cg_maxiter=30):
+    """Path H through the public API, set up: the JAX bench's augmented
+    Stokes configuration (bench.py:751-786) at nc^2 cells with `levels` GMG
+    levels: stokes_problem(graddiv_alpha=1e3, engine), velocity_gmg with
+    Chebyshev(cheby) over the Vanka (0: Richardson(10, 0.2)), the upper
+    block-triangular preconditioner with coefficients ((1, 1), (0, 1)) and
+    Jacobi-CG on -(1/alpha) Mp, FGMRES(m). Returns a dict with the problem,
+    solver and state, the inner CG iteration log and the set-up seconds by
+    step (StepTimes) and in total."""
+    cg_its = []
+    with StepTimes(device) as steps:
+        t0 = time.perf_counter()
+        prob = stokes_mod.stokes_problem((nc, nc), graddiv_alpha=GD_ALPHA, engine=engine,
+                                         dtype=dtype, device=device)
+        gmg = stokes_mod.velocity_gmg((nc, nc), levels, graddiv_alpha=GD_ALPHA, engine=engine,
+                                      cheby_degree=cheby, dtype=dtype, device=device)
+        Mp = dataclasses.replace(prob.Mp, values=prob.Mp.values * (-1.0 / GD_ALPHA))
+        P = BlockTriangularSolver(
+            solvers=(gmg, Recorded(CGSolver(Pl=JacobiSolver(), rtol=cg_rtol,
+                                            maxiter=cg_maxiter), cg_its)),
+            blocks=((LinearSystemBlock(), None), (None, MatrixBlock(Mp))),
+            coeffs=((1.0, 1.0), (0.0, 1.0)), half="upper")
+        solver = FGMRESSolver(m=m, Pr=P, rtol=rtol, maxiter=maxiter)
+        state = solver.setup(prob.A)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    secs = dict(steps.secs)
+    secs["other"] = total - sum(secs.values())
+    return {"prob": prob, "solver": solver, "state": state, "cg_its": cg_its, "gmg": gmg,
+            "levels": levels, "secs": secs, "setup_s": total}
+
+
+def solve_h(run) -> dict:
+    """Solve a set-up path H run: adds its solution, stats and solve
+    seconds."""
+    t0 = time.perf_counter()
+    run["x"], run["stats"] = run["solver"].solve(run["state"], run["prob"].b)
+    if run["x"][1].device.type == "cuda":
+        torch.cuda.synchronize()
+    run["solve_s"] = time.perf_counter() - t0
+    return run
+
+
+def h_roles(run) -> dict:
+    """The operators path H1 applies through K3, by role: the problem's
+    flat velocity block (the GMG's level 0), each coarser level operator,
+    each smoothing level's materialized Vanka, each patch prolongation's
+    grad-div operator and patch solver, B, Bt, the pressure-mass block and
+    the velocity mass."""
+    prob, gst = run["prob"], run["state"]["Pr"]["states"][0]
+    roles = {"K0": prob.K}
+    roles.update({f"K{lv}": op for lv, op in enumerate(gst["mats"]) if lv > 0})
+    roles.update({f"M{lv}": st["M"]["Mv"] for lv, st in enumerate(gst["pre"])})
+    roles.update({f"G{lv}": p.rhs_op for lv, p in enumerate(gst["P"])})
+    roles.update({f"S{lv}": p.state["Mv"] for lv, p in enumerate(gst["P"])})
+    roles.update({"B": prob.A.block(1, 0), "Bt": prob.A.block(0, 1),
+                  "Mp": run["state"]["Pr"]["diag_ops"][1], "Mu": prob.Mu})
+    return roles
+
+
+def h_launches(n: int, cg_its: list, levels: int, degree: int, power_iters: int, m: int,
+               blocks: dict) -> tuple:
+    """K3 launches of one path H1 run by role (fem/stokes.py,
+    linear/gmres.py, blocks/block_solvers.py, linear/gmg.py,
+    linear/smoothers.py, patches/*.py), each an operator's ELL blocks
+    (`blocks[role]`) times its applies: (set-up, solve). Set-up: the load
+    applies Mu once a velocity component (two); each smoothing level's λmax runs `power_iters` applies
+    of its operator and of its Vanka. Solve: FGMRES applies the system
+    (K0, B, Bt) once at the start, once a restart cycle and once an
+    iteration; each of the n preconditioner applies runs the pressure CG
+    (its iterations + 1 Mp applies), Bt once and one V-cycle, which on each
+    smoothing level applies the Vanka 2(k+1) times and the operator 2k+1
+    times (Chebyshev(k) pre and post, the correction residual) and the
+    prolongation's grad-div operator and patch solver once, and on the
+    coarsest level the operator once."""
+    a = 1 + -(-n // m) + n
+    setup = {"Mu": 2 * blocks["Mu"]}
+    solve = {"K0": blocks["K0"] * a, "B": blocks["B"] * a, "Bt": blocks["Bt"] * (a + n),
+             "Mp": sum(c + 1 for c in cg_its)}
+    for lv in range(levels):
+        k = f"K{lv}"
+        if lv == levels - 1:
+            solve[k] = blocks[k] * n
+            continue
+        setup[k] = blocks[k] * power_iters
+        setup[f"M{lv}"] = blocks[f"M{lv}"] * power_iters
+        solve[k] = solve.get(k, 0) + blocks[k] * n * (2 * degree + 1)
+        solve[f"M{lv}"] = blocks[f"M{lv}"] * n * 2 * (degree + 1)
+        solve[f"G{lv}"] = blocks[f"G{lv}"] * n
+        solve[f"S{lv}"] = blocks[f"S{lv}"] * n
+    return setup, solve
+
+
+def ell_csr(A: ELLMatrix, index=torch.int32) -> torch.Tensor:
+    """A's real entries (slots within each row's length) as a torch CSR
+    tensor on its device: the cuSPARSE yardstick, never called by the
+    port."""
+    slot = torch.arange(A.row_width, device=A.device)
+    keep = slot[None, :] < A.row_len[:, None]
+    crow = torch.zeros(A.nrows + 1, dtype=torch.int64, device=A.device)
+    crow[1:] = torch.cumsum(A.row_len.to(torch.int64), 0)
+    return torch.sparse_csr_tensor(crow.to(index), A.cols[keep].to(index), A.values[keep],
+                                   size=A.shape, check_invariants=False)
 
 
 def median_ms(fn, runs=TIMING_RUNS, warmup=3, before=None, spin=True) -> float:
@@ -465,15 +776,16 @@ def main() -> None:
         worst[key] = max(worst[key], abserr(y, y_ref))
         assert e <= tol, f"{tag}: max relative error {e:.3e} > {tol:.0e}"
         lines.append(f"{tag} {e:.2e}")
+        return e
 
     def check_k3(tag, x, tol, values, cols, ncols, row_len=None, group=None):
         """K3 on bare arrays against its plain version (slots past a row's
         length may hold anything here; an ELLMatrix keeps them 0)."""
-        check(tag, "K3", k3.ell_spmv_cuda(values, cols, x, ncols, group, row_len),
-              k3.ell_spmv_plain(values, cols, x, row_len), tol)
+        return check(tag, "K3", k3.ell_spmv_cuda(values, cols, x, ncols, group, row_len),
+                     k3.ell_spmv_plain(values, cols, x, row_len), tol)
 
     def check_ell(tag, A, x, tol):
-        check_k3(tag, x, tol, A.values, A.cols, A.ncols, A.row_len, A.group)
+        return check_k3(tag, x, tol, A.values, A.cols, A.ncols, A.row_len, A.group)
 
     def check_k1(tag, weights, free, shape, x, tol, march):
         """K1 on (weights, free) against its plain version; `march`:
@@ -514,7 +826,7 @@ def main() -> None:
         before = k2.counts.box
         y = k2.banded_stencil_cuda(*args)
         assert k2.counts.box - before == int(box), f"{tag}: box kernel taken {not box}"
-        check(f"K2{tag}", "K2", y, k2.banded_stencil_plain(*args), tol)
+        return check(f"K2{tag}", "K2", y, k2.banded_stencil_plain(*args), tol)
 
     for shape in level_shapes:
         for dt, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
@@ -1015,6 +1327,210 @@ def main() -> None:
           f"launches 0 "
           f"{elapsed()}", flush=True)
 
+    # ---- 6H path H: augmented-Lagrangian Stokes -------------------------
+    # the JAX bench's stokes_graddiv row (bench.py:740-816): grad-div alpha
+    # 1e3, Q2/P1disc, flat engine (every velocity block an ELL field block,
+    # K3), Chebyshev(4) over the materialized vertex-star Vanka (K3), patch-
+    # corrected prolongations (K3) over exact FE transfers (per-axis dense
+    # products), FGMRES(20) rtol 1e-8 <= 30 its, Jacobi-CG rtol 1e-6 <= 30 its
+    # on -(1/alpha) Mp (P1disc, K3), B and Bt on K3. First the bench's own f32
+    # run at its size, card = CPU; then path H2, solve_stokes's block engine
+    # (batched Vanka, banded K2 levels, ELL transfers on K3) at NC_H2^2, card
+    # = CPU, and the flat engine's iterations equal to it; then the counted
+    # NC_H^2 run in f64 (H1)
+    f64 = torch.float64
+    levels_h = int(math.log2(NC_H // 16)) + 1
+    small = []
+    # in f32 the FGMRES estimate reaches rtol 1e-8 within a few f32 ulps of
+    # it (the CPU sweep: 7.4e-9 at 96^2), so the card and the CPU, summing in
+    # other orders, may stop one iteration apart; and an f32 solution of the
+    # alpha-augmented system is only as good as its ~2.6e-2 true residual
+    # (the sweep), so each is held against the f64 solution: the card's as
+    # close to it as the CPU's (within H_F32_TOL of max|x64| more)
+    hf = {d: solve_h(setup_h(NC_H_F32, LEVELS_H_F32, f32, d)) for d in (dev, "cpu")}
+    x64_f32 = pt.ravel(solve_h(setup_h(NC_H_F32, LEVELS_H_F32, torch.float64, dev))["x"]).cpu()
+    st, st_cpu = hf[dev]["stats"], hf["cpu"]["stats"]
+    assert abs(st.niter - st_cpu.niter) <= 1 and int(st.flag) == int(st_cpu.flag) == 2, (
+        st.niter, st_cpu.niter, st.flag, st_cpu.flag)
+    ratio = {d: float(hf[d]["stats"].residuals[hf[d]["stats"].niter]
+                      / hf[d]["stats"].residuals[0]) for d in hf}
+    eh = relerr(pt.ravel(hf[dev]["x"]).cpu(), pt.ravel(hf["cpu"]["x"]))
+    e64 = {d: relerr(pt.ravel(hf[d]["x"]).cpu(), x64_f32) for d in hf}
+    assert e64[dev] <= e64["cpu"] + H_F32_TOL, (
+        f"{NC_H_F32}^2 f32 augmented Stokes against f64: card {e64[dev]:.2e}, CPU "
+        f"{e64['cpu']:.2e}")
+    small.append(f"the bench's f32 run, {NC_H_F32}^2/{LEVELS_H_F32} levels: {st.niter} its "
+                 f"(CPU plain path {st_cpu.niter}), flag CONVERGED_RTOL, final estimate ratio "
+                 f"{ratio[dev]:.3e} (CPU {ratio['cpu']:.3e}), x against the f64 solution "
+                 f"{e64[dev]:.2e} (CPU {e64['cpu']:.2e}), card against CPU {eh:.1e}, "
+                 f"true rel residual {stokes_rel_residual64(hf[dev]['prob'], hf[dev]['x']):.3e} "
+                 f"(f32 vectors), solve {hf[dev]['solve_s']:.2f} s")
+    # one augmented V-cycle at this run's shapes, card against CPU on the
+    # same operators (the CPU's f32 set-up moved to the card) and input: in
+    # f32, and on the same stored values widened to f64, so that the
+    # solver's amplification of the two devices' summation orders is one
+    # cycle's, not a whole solve's
+    g32, s32 = hf["cpu"]["gmg"], hf["cpu"]["state"]["Pr"]["states"][0]
+    r_u = tuple(vec(t.shape[0], f64).cpu() for t in hf["cpu"]["prob"].b[0])
+    vc = {}
+    for dt, tol in ((f32, H_VCYCLE_F32_TOL), (f64, H_VCYCLE_F64_TOL)):
+        g, s_ = pt.tree_cast(g32, dt), pt.tree_cast(s32, dt)
+        y = {d: torch.cat(tree_to(g, d).apply(tree_to(s_, d), tuple(t.to(d, dt) for t in r_u)))
+             for d in (dev, "cpu")}
+        vc[dt] = relerr(y[dev].cpu(), y["cpu"])
+        assert bool(torch.isfinite(y[dev]).all()) and vc[dt] <= tol, (
+            f"{NC_H_F32}^2 V-cycle {dt}, card against CPU on the same operators: "
+            f"{vc[dt]:.2e} > {tol:.0e}")
+    small.append(f"one V-cycle at {NC_H_F32}^2 on the CPU's set-up, card against CPU: f32 "
+                 f"{vc[f32]:.2e} (<= {H_VCYCLE_F32_TOL:.0e}), widened to f64 {vc[f64]:.2e} "
+                 f"(<= {H_VCYCLE_F64_TOL:.0e})")
+    del hf, x64_f32
+    reset_counts()
+    t0 = time.perf_counter()
+    xh2, sth2, infoh2 = solve_stokes((NC_H2, NC_H2), graddiv_alpha=GD_ALPHA, device=dev)
+    torch.cuda.synchronize()
+    secs_h2 = time.perf_counter() - t0
+    launches["H2"] = read_counts(k2_box=False)
+    shapes_h2 = {"K2": dict(k2.counts.shapes), "K3": dict(k3.counts.shapes)}
+    xh2c, sth2c, infoh2c = solve_stokes((NC_H2, NC_H2), graddiv_alpha=GD_ALPHA, device="cpu")
+    assert sth2.niter == sth2c.niter and int(sth2.flag) == int(sth2c.flag) == 2, (
+        sth2.niter, sth2c.niter, sth2.flag, sth2c.flag)
+    e2 = relerr(pt.ravel(xh2).cpu(), pt.ravel(xh2c))
+    assert e2 <= H2_TOL, f"{NC_H2}^2 solve_stokes(graddiv): card vs CPU {e2:.2e}"
+    assert infoh2["residual"] < 1e-7 and launches["H2"]["K2"] > 0 and launches["H2"]["K3"] > 0
+    # the flat engine at NC_H2^2 with solve_stokes's configuration
+    # (Richardson(10, 0.2) Vanka, FGMRES(40) rtol 1e-9, Jacobi-CG rtol 1e-8)
+    flat2 = solve_h(setup_h(NC_H2, 3, f64, dev, cheby=0, m=40, rtol=1e-9, maxiter=120,
+                            cg_rtol=1e-8, cg_maxiter=50))
+    assert flat2["stats"].niter == sth2.niter, (flat2["stats"].niter, sth2.niter)
+    ef = relerr(pt.ravel(flat2["x"]), pt.ravel(xh2))
+    assert ef <= 1e-6, f"{NC_H2}^2 flat engine against block engine: x {ef:.2e}"
+    small.append(
+        f"H2 solve_stokes({NC_H2}^2, graddiv_alpha=1e3) f64 (block engine, Richardson(10, 0.2) "
+        f"Vanka): {sth2.niter} its (CPU plain path {sth2c.niter}), x rel diff {e2:.1e}, "
+        f"velocity L2 {infoh2['velocity_error']:.3e}, {secs_h2:.2f} s incl. set-up, launches K2 "
+        + ", ".join(f"{g[1]}^2 {c}" for g, c in sorted(shapes_h2["K2"].items()))
+        + f" (25 bands, general kernel), K3 {launches['H2']['K3']}; the flat engine "
+        f"{flat2['stats'].niter} its, x against the block engine's {ef:.1e}")
+    prob_h2 = infoh2["problem"]
+    del xh2c, infoh2c, flat2
+    # H1, counted: every launch from stokes_problem to the end of the solve
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    with BlockCounts() as bc:
+        run_h = setup_h(NC_H, levels_h, f64, dev)
+        bc.phase = "solve"
+        solve_h(run_h)
+    launches["H f64"] = read_counts(k2_box=False)
+    shapes_h = {"K2": dict(k2.counts.shapes), "K3": dict(k3.counts.shapes)}
+    mem_gb = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+    kept_gb = (torch.cuda.memory_allocated() - mem0) / 2 ** 30
+    prob, x, stH = run_h["prob"], run_h["x"], run_h["stats"]
+    n = stH.niter
+    # every counted apply belongs to one role's block; each role's count,
+    # set-up and solve apart, equals its term of h_launches, and the counts
+    # by block shape add up to the kernel's own counts by shape
+    role_blocks = {role: ell_blocks(op) for role, op in h_roles(run_h).items()}
+    owned = [id(b) for bl in role_blocks.values() for b in bl]
+    assert len(owned) == len(set(owned)), "a block in two roles"
+    stray = {bc.seen[k].shape for _, k in bc.counts if k not in set(owned)}
+    assert not stray, f"K3 launches on blocks of no role: {stray}"
+    counted = {ph: {role: bc.of(bl, ph) for role, bl in role_blocks.items()}
+               for ph in ("set-up", "solve")}
+    blocks = {role: len(bl) for role, bl in role_blocks.items()}
+    shape_of = {role: bl[0].shape for role, bl in role_blocks.items()}
+    power_iters = PreconditionedChebyshevSmoother().power_iters
+    want = dict(zip(("set-up", "solve"), h_launches(n, run_h["cg_its"], levels_h, 4,
+                                                     power_iters, 20, blocks)))
+    for ph in want:
+        assert counted[ph] == {r: want[ph].get(r, 0) for r in blocks}, (ph, counted[ph], want[ph])
+    assert launches["H f64"]["K1"] == launches["H f64"]["K2"] == 0 and not shapes_h["K2"]
+    assert shapes_h["K3"] == bc.by_shape(), (shapes_h["K3"], bc.by_shape())
+    run_h["syncs"] = 1 + -(-n // 20) + n + sum(c + 1 for c in run_h["cg_its"])
+    assert int(stH.flag) == 2 and n <= GD_MAXITER, (n, stH.flag)
+    assert H_ITS[0] <= n <= H_ITS[1], (n, H_ITS)
+    leaves = pt.tree_leaves(x)
+    assert [t.shape[0] for t in leaves] == [(2 * NC_H + 1) ** 2] * 2 + [3 * NC_H ** 2]
+    assert all(t.dtype == f64 and bool(torch.isfinite(t).all()) for t in leaves)
+    run_h["rel64"] = stokes_rel_residual64(prob, x)
+    run_h["uerr"], run_h["perr"] = prob.velocity_error(x[0]), prob.pressure_error(x[1])
+    assert run_h["rel64"] < 2 * GD_RTOL, run_h["rel64"]
+    assert run_h["uerr"] <= H_VEL_ERR_BOUND and run_h["perr"] <= H_PRE_ERR_BOUND, (
+        run_h["uerr"], run_h["perr"])
+    cg = run_h["cg_its"]
+    print(f"[6H path H] augmented Stokes (alpha 1e3, Q2/P1disc), FGMRES(20, rtol {GD_RTOL:.0e}"
+          f" <= {GD_MAXITER}) + upper block-triangular ((1, 1), (0, 1)): velocity GMG flat engine "
+          f"Chebyshev(4) over materialized Vanka, patch prolongations; Jacobi-CG on -(1/alpha)Mp "
+          f"rtol 1e-6 <= 30 its. " + "; ".join(small)
+          + f"; H1 {NC_H}^2/{levels_h} levels f64 (counted): {n} its (band {H_ITS}), flag "
+          f"CONVERGED_RTOL, true rel residual {run_h['rel64']:.3e} (< {2 * GD_RTOL:.0e}), "
+          f"velocity L2 {run_h['uerr']:.4e} (bound {H_VEL_ERR_BOUND:.4e}), pressure L2 "
+          f"{run_h['perr']:.4e} (bound {H_PRE_ERR_BOUND:.4e}); inner CG its {min(cg)}-{max(cg)} "
+          f"(sum {sum(cg)}); host syncs {run_h['syncs']}; set-up {run_h['setup_s']:.2f} s by "
+          f"step: " + ", ".join(f"{k} {v:.2f}" for k, v in run_h["secs"].items())
+          + f"; solve {run_h['solve_s']:.2f} s; device memory over what the earlier paths "
+          f"hold: peak {mem_gb:.2f} GiB, {kept_gb:.2f} GiB kept after the solve; native "
+          f"host kernels: {native.implementation()}; K3 launches {launches['H f64']['K3']}, "
+          f"counted by role (set-up + solve, each equal to blocks x applies): "
+          + ", ".join(f"{role} {counted['set-up'][role]} + {counted['solve'][role]} "
+                      f"({blocks[role]} blocks, {shape_of[role][0]}x{shape_of[role][1]})"
+                      for role in blocks)
+          + f"; by shape equal to the kernel's counts; K1 0, K2 0, plain launches 0 "
+          f"{elapsed()}", flush=True)
+    # K3 on path H's new shapes (and K2 on the block engine's 25-band
+    # augmented blocks) against their plain versions, at 16^2 and NC_H^2:
+    # every ELL block of every role H1 applies (each level's operator,
+    # materialized Vanka and patch prolongation, B, Bt, Mp, Mu), and K2 on
+    # the 25-band K+G and G blocks; then every kernel leaf of H2's
+    # hierarchy (K2 on each level's banded blocks, K3 on its FE transfers)
+    run16 = setup_h(16, 2, f64, dev)
+    by_role = []
+    for nc, r in ((16, run16), (NC_H, run_h)):
+        pr = r["prob"]
+        for role, op in h_roles(r).items():
+            err = {}
+            for dt, tol in ((f32, F32_TOL), (f64, F64_TOL)):
+                err[dt] = max(check_ell(f"K3[H {nc}^2 {role}.{i} {A.nrows}x{A.ncols}]"
+                                        f"{str(dt)[6:]}", A, vec(A.ncols, dt), tol)
+                              for i, A in enumerate(b.astype(dt) for b in ell_blocks(op)))
+            bl = ell_blocks(op)
+            by_role.append(f"{nc}^2 {role} {len(bl)}x{bl[0].nrows}x{bl[0].ncols} K<="
+                           f"{max(b.row_width for b in bl)} f32 {err[f32]:.1e} "
+                           f"f64 {err[f64]:.1e}")
+        for dt, tol in ((f32, F32_TOL), (f64, F64_TOL)):
+            for name, A in (("K+G", pr.K.inner.blocks[0][0]), ("G", pr.K.inner.blocks[0][1])):
+                A = A.astype(dt)
+                assert len(A.offsets) == 25, (name, len(A.offsets))
+                e = check_k2(f"[H {nc}^2 {name} 25 bands {A.grid_shape}]{str(dt)[6:]}", A,
+                             vec(A.n, dt), tol, False)
+                by_role.append(f"{nc}^2 {name} K2 {A.grid_shape[0]}^2 {str(dt)[6:]} {e:.1e}")
+    # the timed blocks (phase 8): level 0's, and the -(1/alpha) Mp that the
+    # pressure CG applies
+    Mv = run_h["state"]["Pr"]["states"][0]["pre"][0]["M"]["Mv"]
+    h_ops = {"M_vanka (0,0)": Mv.kblocks[0][0], "M_vanka (0,1)": Mv.kblocks[0][1],
+             "K+G (0,0)": run_h["prob"].K.kblocks[0][0], "G (0,1)": run_h["prob"].K.kblocks[0][1],
+             "Mp P1disc": run_h["state"]["Pr"]["diag_ops"][1], "B P1disc": run_h["prob"].A.block(1, 0).ops[0],
+             "Bt P1disc": run_h["prob"].A.block(0, 1).ops[0]}
+    h2_leaves = collections.defaultdict(lambda: [0, 0.0])  # kind: [leaves, worst]
+    for lv, A in enumerate(kernel_leaves(infoh2["state"]["Pr"]["states"][0])):
+        for dt, tol in ((f32, F32_TOL), (f64, F64_TOL)):
+            Ad, tag = A.astype(dt), f"[H2 leaf {lv}]{str(dt)[6:]}"
+            if isinstance(A, ELLMatrix):
+                e = check_ell(f"K3{tag}", Ad, vec(Ad.ncols, dt), tol)
+                leaf_kind = f"H2 K3 {Ad.nrows}x{Ad.ncols} {str(dt)[6:]}"
+            else:
+                e = check_k2(tag, Ad, vec(Ad.n, dt), tol, False)
+                leaf_kind = f"H2 K2 {len(Ad.offsets)} bands {Ad.grid_shape[0]}^2 {str(dt)[6:]}"
+            h2_leaves[leaf_kind][0] += 1
+            h2_leaves[leaf_kind][1] = max(h2_leaves[leaf_kind][1], e)
+    by_role += [f"{k} ({c} leaves) {e:.1e}" for k, (c, e) in h2_leaves.items()]
+    print(f"[6H kernels] {len(lines)} cases on path H's operators within f32 {F32_TOL:.0e} / "
+          f"f64 {F64_TOL:.0e}, worst by role (blocks x rows x columns): " + ", ".join(by_role)
+          + f" {elapsed()}", flush=True)
+    lines.clear()
+    del run16
+
     # ---- 7 K3 on path C's own operators ---------------------------------
     ops = ([(f"level {i}", m) for i, m in enumerate(amg["mats"]) if i > 0]
            + [(f"P{i}", m) for i, m in enumerate(amg["P"])]
@@ -1196,6 +1712,44 @@ def main() -> None:
         g_keys[key] = (f"{A.shape[0]}x{A.shape[1]}, {S_A.nnz} entries", e)
         del csr, csr64
     del csr_g
+    # path H's operators at NC_H^2 in f64 (H1's dtype) and f32: K3 as the
+    # path runs it, its plain version, cuSPARSE on the same real entries
+    # (which also cross-checks y) and the bytes bound; K2's general kernel on
+    # path H2's 25-band augmented blocks (the block engine at NC_H2^2) and on
+    # the same blocks at NC_H^2
+    h_keys = {}
+    for name, A64 in h_ops.items():
+        for dt in (f64, f32):
+            A = A64.astype(dt)
+            key = f"H {name} f{torch.finfo(dt).bits}"
+            xh = vec(A.ncols, dt)
+            t[key] = median_ms(lambda: A.matvec(xh))
+            t[f"{key} plain"] = median_ms(lambda: k3.ell_spmv_plain(A.values, A.cols, xh,
+                                                                     A.row_len))
+            csr = ell_csr(A)
+            t[f"{key} library"] = median_ms(lambda: torch.mv(csr, xh))
+            bound[key] = ell_bound_ms(A, xh)
+            e = relerr(A.matvec(xh), torch.mv(csr, xh))
+            assert e <= (F32_TOL if dt == f32 else F64_TOL), f"{key}: kernel vs cuSPARSE {e:.2e}"
+            h_keys[key] = (f"{A.nrows}x{A.ncols}, {ell_fill(A)[0]} entries, K={A.row_width}, "
+                           f"G={A.group}", e)
+            del csr
+    h2_ops = {f"K+G {NC_H2}^2": prob_h2.K.blocks[0][0], f"G {NC_H2}^2": prob_h2.K.blocks[0][1],
+              f"K+G {NC_H}^2": run_h["prob"].K.inner.blocks[0][0]}
+    for name, A64 in h2_ops.items():
+        key = f"H2 {name}"
+        A = A64.astype(f64)
+        xh = vec(A.n, f64)
+        args = (A.bands, A.offsets, A.grid_shape, A._periodic(), xh)
+        t[key] = median_ms(lambda: k2.banded_stencil_cuda(*args))
+        t[f"{key} plain"] = median_ms(lambda: k2.banded_stencil_plain(*args))
+        csr = ell_csr(flat_mod.flat_kernel_operator(A).kblocks[0][0])
+        t[f"{key} library"] = median_ms(lambda: torch.mv(csr, xh))
+        bound[key] = (len(A.offsets) + 2) * 8 * A.n / HBM_BYTES_PER_S * 1e3
+        e = relerr(k2.banded_stencil_cuda(*args), torch.mv(csr, xh))
+        assert e <= F64_TOL, f"{key}: kernel vs cuSPARSE {e:.2e}"
+        h_keys[key] = (f"25 bands on {A.grid_shape[0]}^2, {csr._nnz()} entries", e)
+        del csr
     # K3's lanes a row, read to row lengths and in full
     sweep = []
     for tag, A in k3_ops.items():
@@ -1219,6 +1773,10 @@ def main() -> None:
     for tag, run in runs_g.items():
         t[f"solve {tag}"] = median_ms(lambda: run["solver"].solve(run["state"], run["prob"].b),
                                       runs=5, warmup=1, spin=False)
+    t["solve H f64"] = median_ms(lambda: run_h["solver"].solve(run_h["state"], run_h["prob"].b),
+                                 runs=3, warmup=1, spin=False)
+    t["solve H2"] = median_ms(
+        lambda: infoh2["solver"].solve(infoh2["state"], prob_h2.b), runs=5, warmup=1, spin=False)
     for variant, (prob, solver, state, *_) in runs_f.items():
         t[f"solve F {variant}"] = median_ms(lambda: solver.solve(state, prob.b), runs=20, warmup=2,
                                          spin=False)
@@ -1272,6 +1830,15 @@ def main() -> None:
           + f" | {NC_G}^2 solve only, median of 5: "
           + ", ".join(f"{tag} ({runs_g[tag]['stats'].niter} its) {t['solve ' + tag]:.2f} ms"
                       for tag in runs_g) + f" {elapsed()}", flush=True)
+    print(f"[8 H] {card} | path H's {NC_H}^2 operators (K3) in f64 and f32, and the "
+          f"augmented banded blocks (K2's general kernel, f64), median of {TIMING_RUNS} (CUDA "
+          f"events), ms per apply: "
+          + "; ".join(f"{key} ({desc}) kernel {t[key]:.4f}, plain {t[key + ' plain']:.4f}, "
+                      f"cuSPARSE int32 {t[key + ' library']:.4f}, bound {bound[key]:.4f}, "
+                      f"kernel vs cuSPARSE y {e:.1e}" for key, (desc, e) in h_keys.items())
+          + f" | solve only: H1 {NC_H}^2 f64 ({run_h['stats'].niter} its) median of 3 "
+          f"{t['solve H f64']:.2f} ms; H2 {NC_H2}^2 ({sth2.niter} its) median of 5 "
+          f"{t['solve H2']:.2f} ms {elapsed()}", flush=True)
     if opts.profile is not None:
         summary = profile_solve(lambda: cgC.solve(stateC, probC.b), opts.profile, "path_c")
         print(f"[profile] path C solve, {card}: {summary} {elapsed()}", flush=True)
@@ -1279,6 +1846,9 @@ def main() -> None:
             summary = profile_solve(lambda: run["solver"].solve(run["state"], run["prob"].b),
                                     opts.profile, f"path_{tag.replace(' ', '_')}")
             print(f"[profile] path {tag} solve, {card}: {summary} {elapsed()}", flush=True)
+        summary = profile_solve(lambda: run_h["solver"].solve(run_h["state"], run_h["prob"].b),
+                                opts.profile, "path_H_f64")
+        print(f"[profile] path H f64 solve, {card}: {summary} {elapsed()}", flush=True)
 
     def row(key, name, source, replaces, shape_key):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1315,6 +1885,25 @@ def main() -> None:
         "K 25 bands, all levels launches": sum(
             c for run in runs_g.values() for g, c in run["launches"]["K2"].items() if g[0] == 25)}
     k3_row["stokes"] = {name: g_entry(f"G {name}", "K3", g_k3[name]) for name in ("B", "Bt")}
+    # path H: each timed block's launches counted in H1's run (set-up and
+    # solve), every role's counted launches, and the kernel's by shape
+
+    def h_entry(key, launches_n):
+        return {"ms": r4(t[key]), "plain_ms": r4(t[f"{key} plain"]), "bound_ms": r4(bound[key]),
+                "library_ms": r4(t[f"{key} library"]), "launches": launches_n}
+
+    k3_row["stokes_graddiv"] = {
+        key: h_entry(key, sum(bc.of([h_ops[key[2:-4]]], ph) for ph in counted))
+        for key in h_keys if key.startswith("H ")}
+    k3_row["stokes_graddiv"]["launches_by_role"] = {
+        role: {ph: counted[ph][role] for ph in counted} for role in blocks}
+    k3_row["stokes_graddiv"]["launches_by_shape"] = {
+        f"{r}x{c}": n for (r, c), n in sorted(shapes_h["K3"].items())}
+    k3_row["stokes_graddiv"]["H2 launches"] = launches["H2"]["K3"]
+    k2_row["stokes_graddiv_h2"] = {
+        key: h_entry(key, sum(c for g, c in shapes_h2["K2"].items()
+                              if g == (25,) + h2_ops[key[3:]].grid_shape))
+        for key in h_keys if key.startswith("H2 ")}
     k1_row = row("K1", "K1 const_stencil", "gridapsolvers_tpu_torch/csrc/const_stencil.cu",
                  "gridapsolvers_tpu/ops/stencil_pallas.py:61", "K1")
     k1_row.update({

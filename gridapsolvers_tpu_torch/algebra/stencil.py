@@ -184,26 +184,36 @@ def stencil_from_scipy(
     n = int(np.prod(gs))
     if S.shape != (n, n):
         raise ValueError(f"matrix shape {S.shape} does not fit grid {gs}")
-    ri = np.stack(np.unravel_index(coo.row, gs), axis=1).astype(np.int64)
-    ci = np.stack(np.unravel_index(coo.col, gs), axis=1).astype(np.int64)
-    delta = ci - ri
     per = tuple(periodic) if periodic is not None else (False,) * d
-    for k in range(d):
+    # per-axis grid offsets of every entry (column coordinate - row
+    # coordinate; periodic axes wrapped into [-m/2, m/2))
+    delta = []
+    for k, (ri, ci) in enumerate(zip(np.unravel_index(coo.row, gs),
+                                     np.unravel_index(coo.col, gs))):
+        dk = ci.astype(np.int64) - ri
         if per[k]:
-            m = gs[k]
-            delta[:, k] = (delta[:, k] + m // 2) % m - m // 2
-    lo = delta.min(axis=0)
-    hi = delta.max(axis=0)
-    dims = tuple(int(h - l + 1) for l, h in zip(lo, hi))
-    key = np.ravel_multi_index(tuple((delta - lo).T), dims)
-    ukeys, inv = np.unique(key, return_inverse=True)
-    offs = np.stack(np.unravel_index(ukeys, dims), axis=1) + lo
+            dk = (dk + gs[k] // 2) % gs[k] - gs[k] // 2
+        delta.append(dk)
+    lo = [int(dk.min()) for dk in delta]
+    dims = tuple(int(dk.max()) - l + 1 for dk, l in zip(delta, lo))
+    key = np.zeros(len(coo.row), dtype=np.int64)
+    for dk, l, m in zip(delta, lo, dims):
+        key = key * m + (dk - l)
+    # the sorted distinct keys and each entry's rank among them (what
+    # np.unique(key, return_inverse=True) gives), in time linear in the
+    # entries: the keys range over the small offset envelope
+    ukeys = np.flatnonzero(np.bincount(key, minlength=int(np.prod(dims))))
+    rank = np.zeros(int(np.prod(dims)), dtype=np.int64)
+    rank[ukeys] = np.arange(len(ukeys))
+    inv = rank[key]
+    offs = np.stack(np.unravel_index(ukeys, dims), axis=1) + np.asarray(lo)
     offsets = [tuple(int(v) for v in row) for row in offs]
     center = tuple(0 for _ in gs)
     if center not in offsets:  # diag() needs the center band
         offsets.append(center)
-    bands = np.zeros((len(offsets), n), dtype=coo.data.dtype)
-    np.add.at(bands, (inv, coo.row), coo.data)
+    # duplicates summed, as np.add.at sums them
+    bands = np.bincount(inv * n + coo.row, weights=coo.data,
+                        minlength=len(offsets) * n).astype(coo.data.dtype, copy=False)
     bands_t = torch.from_numpy(bands.reshape((len(offsets),) + gs))
     return StencilMatrix(
         bands_t.to(device=resolve_device(device), dtype=dtype or bands_t.dtype),

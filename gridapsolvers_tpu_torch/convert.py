@@ -14,12 +14,14 @@ import torch
 
 from .algebra.block import BlockOperator, ColumnStack, FieldwiseOperator, RowStack
 from .algebra.ell import ELLMatrix
+from .algebra.flat import BlockedKernelOperator
 from .algebra.stencil import ConstStencilMatrix, StencilMatrix
 from .fem.mesh import CartesianMesh
 from .fem.poisson import PoissonProblem
 from .fem.stokes import StokesProblem
 from .interfaces.nullspaces import NullSpace
-from .multilevel.transfer import StructuredProlongation, StructuredRestriction
+from .multilevel.transfer import StructuredProlongation, StructuredRestriction, TensorTransfer
+from .patches.topology import PatchTopology
 from .utils import resolve_device
 
 
@@ -95,9 +97,22 @@ def operator(spec: dict, *, device=None, dtype=None):
     constant stencil {"weights", "free", "offsets", "grid_shape"}, stencil
     {"bands", "offsets", "grid_shape", "periodic"}, or a block operator
     whose parts are such dicts: {"blocks": rows of dicts or None},
-    {"column_stack": [...]}, {"row_stack": [...]} or {"fieldwise": [...]}."""
+    {"column_stack": [...]}, {"row_stack": [...]} or {"fieldwise": [...]};
+    or a blocked-kernel operator {"kblocks": rows of ELL dicts or None,
+    "inner": a dict or None, "sizes"}. An ELL dict may carry "row_len"
+    (the real entries of each row; the JAX package's ELL has none)."""
     if "values" in spec:
-        return ell_matrix(spec["values"], spec["cols"], spec["ncols"], device=device, dtype=dtype)
+        A = ell_matrix(spec["values"], spec["cols"], spec["ncols"], device=device, dtype=dtype)
+        if spec.get("row_len") is not None:
+            A.row_len = _tensor(np.asarray(spec["row_len"], np.int32), device)
+        return A
+    if "kblocks" in spec:
+        return BlockedKernelOperator(
+            kblocks=tuple(tuple(None if b is None else operator(b, device=device, dtype=dtype)
+                                for b in row) for row in spec["kblocks"]),
+            inner=None if spec.get("inner") is None else operator(spec["inner"], device=device,
+                                                                  dtype=dtype),
+            sizes=tuple(int(n) for n in spec["sizes"]))
     if "weights" in spec:
         return const_stencil_matrix(spec["weights"], spec["free"], spec["offsets"],
                                     spec["grid_shape"], device=device, dtype=dtype)
@@ -279,3 +294,37 @@ def stokes_problem(
         nu=float(nu),
         const_p=vec(const_p),
     )
+
+
+def patch_topology(dofs: np.ndarray, dummy: int, n_dofs: int) -> PatchTopology:
+    """`PatchTopology` from the JAX one's fields."""
+    return PatchTopology(dofs=np.array(dofs, dtype=np.int32), dummy=int(dummy),
+                         n_dofs=int(n_dofs))
+
+
+def vanka_state(solver, A, dofs, inv, uncovered_inv_diag, wdof=None, *, device=None,
+                dtype=None) -> dict:
+    """The state of the port's `VankaSolver` (or `PatchSolver`) `solver` on
+    the port's operator A from a JAX Vanka state's arrays: the patch dof
+    table, the batched patch inverses, the uncovered dofs' inverse diagonal
+    and (overlap weighting) the dof weights. The pattern entries
+    (`meta`, `ell_cols`, `leaf_masks`, `uncov`) come from the port's own
+    set-up of A, so only the patch inverses are carried."""
+    state = solver.setup(A)
+    state.update({
+        "dofs": _tensor(np.asarray(dofs, np.int64), device),
+        "inv": _tensor(inv, device, dtype),
+        "uncovered_inv_diag": _tensor(uncovered_inv_diag, device, dtype),
+    })
+    if wdof is not None:
+        state["wdof"] = _tensor(wdof, device, dtype)
+    return state
+
+
+def tensor_transfer(mats, in_shape, out_shape, mask_in=None, mask_out=None, *, device=None,
+                    dtype=None) -> TensorTransfer:
+    """`TensorTransfer` from the JAX one's fields."""
+    return TensorTransfer(
+        mats=tuple(_tensor(m, device, dtype) for m in mats),
+        in_shape=tuple(int(m) for m in in_shape), out_shape=tuple(int(m) for m in out_shape),
+        mask_in=_tensor(mask_in, device, dtype), mask_out=_tensor(mask_out, device, dtype))

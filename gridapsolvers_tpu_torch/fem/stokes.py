@@ -16,10 +16,13 @@ rectangular `ELLMatrix` blocks (kernel K3), and the Q1 pressure mass is a
 banded 3^d `StencilMatrix` (K2). A manufactured divergence-free
 polynomial solution gives L2-error validation.
 
-Not ported yet (slice 3b, augmented Stokes): the grad-div augmented
-velocity block (`graddiv_alpha > 0`), `engine="flat"`, the vertex-star
-Vanka smoother and the patch prolongation; each raises
-NotImplementedError.
+The augmented-Lagrangian variant (`graddiv_alpha > 0`, Q2/P1disc, the
+reference's StokesGMG.jl configuration) has a velocity block of banded
+component blocks `K δ_cd + G_cd` (K2); engine='flat' runs every velocity
+block as an `ELLMatrix` (K3, algebra/flat.py) and smooths with
+materialized patch smoothers (patches/materialized.py). Its GMG smooths
+with vertex-star Vanka and prolongates with coarse-cell patch
+corrections over exact FE transfers.
 """
 from __future__ import annotations
 
@@ -36,12 +39,6 @@ from ..utils import pytrees as pt
 from ..utils import resolve_device
 from . import assembly2 as asm
 from .mesh import CartesianMesh
-
-_SLICE_3B = "comes with slice 3b (patch smoothers and augmented Stokes)"
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} {_SLICE_3B}; ROADMAP.md queue 1 item 1")
 
 
 # -- manufactured solution (2D): u = curl psi, psi = x^2(1-x)^2 y^2(1-y)^2 ---
@@ -152,19 +149,140 @@ class StokesProblem:
         return float(pt.norm(pt.sub(self.b, self.A.matvec(x))))
 
 
-def graddiv_velocity_block(*args, **kwargs):
-    """The grad-div augmented velocity block (not ported yet)."""
-    raise _not_ported("graddiv_velocity_block")
+def graddiv_velocity_block(
+    mesh: CartesianMesh,
+    nu: float,
+    alpha: float,
+    return_graddiv: bool = False,
+    K_full=None,
+    Gs=None,
+    banded: bool = False,
+    dtype=None,
+    device=None,
+):
+    """Augmented-Lagrangian velocity block (reference StokesGMG.jl:107-110):
+
+        a(u,v) = nu ∫∇u:∇v + alpha ∫(∇·v) Π_Q(∇·u)
+
+    with Π_Q the CELL-LOCAL L2 projection onto discontinuous P1 (the
+    reference's LocalProjectionMap), assembled as the component-block
+    matrix K δ_cd + G_cd from one cell-local element block
+    (elements.graddiv_element). Cell-locality makes ker(G) decompose over
+    vertex patches, which the alpha-robustness of patch smoothers and
+    patch prolongations rests on. The term vanishes on the discrete
+    constraint manifold (Bp u = 0 for the P1disc pressure), so augmenting
+    the system leaves its solution unchanged.
+
+    banded=True packs every (c,d) block as a `StencilMatrix` on the Q2 node
+    grid (5^d offsets, kernel K2); otherwise as an `ELLMatrix` (K3) with
+    zeros dropped. Operators are in the torch `dtype` (None: f64) on
+    `device` (None: the card). return_graddiv also returns the BlockOperator
+    of the G_cd blocks alone."""
+    dim = len(mesh.ncells)
+    dev = resolve_device(device)
+    mask_u = asm.boundary_node_mask(mesh, 2)
+    if K_full is None:
+        K_full = asm.assemble_bilinear(mesh, 2, "stiffness", scale=nu)
+    K_csr = asm.dirichlet_square(K_full, mask_u)
+    if Gs is None:
+        Gs = asm.assemble_graddiv(mesh, 2, alpha)
+    if banded:
+        # every (c,d) block is grid-local on the SAME Q2 node grid, so it
+        # bands to a StencilMatrix (5^d offset envelope) as the plain
+        # velocity block does; Vanka/patch extraction reads stencil leaves
+        # through algebra/ell_view.py
+        gs_nodes = asm.node_grid_shape(mesh, 2)
+
+        def _pack(S):
+            return stencil_from_scipy(S.tocsr(), gs_nodes, dtype=dtype, device=dev)
+    else:
+        def _pack(S):
+            S = S.tocsr()
+            S.eliminate_zeros()
+            return asm.to_ell(S, dtype=dtype, device=dev)
+
+    rows, grows = [], []
+    for c in range(dim):
+        row, grow = [], []
+        for d in range(dim):
+            G = asm.zero_rows(asm.zero_columns(Gs[c][d], mask_u), mask_u)
+            grow.append(_pack(G))
+            row.append(_pack((G + K_csr).tocsr()) if c == d else grow[-1])
+        rows.append(tuple(row))
+        grows.append(tuple(grow))
+    aug = BlockOperator(tuple(rows))
+    if return_graddiv:
+        return aug, BlockOperator(tuple(grows))
+    return aug
 
 
-def velocity_vanka_smoother(*args, **kwargs):
-    """The vertex-star patch smoother (not ported yet)."""
-    raise _not_ported("velocity_vanka_smoother")
+def _vertex_star_topology(mesh: CartesianMesh):
+    """Vertex-star patches of the Q2 velocity (all components): one patch
+    per free mesh vertex, holding the free Q2 nodes of its open star
+    (radius 1 on the Q2 node grid, stride 2)."""
+    from ..patches.topology import concat_patches, vertex_star_patches
+
+    dim = len(mesh.ncells)
+    gs = asm.node_grid_shape(mesh, 2)
+    free = ~asm.boundary_node_mask(mesh, 2).reshape(gs)
+    t = vertex_star_patches(gs, free_mask=free, radius=1, stride=2)
+    n_u = int(np.prod(gs))
+    return concat_patches([t] * dim, [n_u] * dim)
 
 
-def graddiv_patch_prolongation(*args, **kwargs):
-    """The grad-div patch prolongation (not ported yet)."""
-    raise _not_ported("graddiv_patch_prolongation")
+def velocity_vanka_smoother(
+    mesh: CartesianMesh, omega: float = 1.0, weighting: str = "unit",
+    engine: str = "batched",
+):
+    """Vertex-star patch smoother on the (possibly grad-div augmented)
+    velocity block: one patch per mesh vertex holding the Q2 velocity dofs
+    (all components) INTERIOR to its 2^d surrounding cells (radius 1 on the
+    Q2 node grid = the open star; including the patch-boundary nodes makes
+    overlaps up to 3^d-fold and the additive iteration divergent), the
+    reference's get_patch_smoothers Schöberl vertex-star decomposition
+    (StokesGMG.jl:38-47). Matrix-extracted (BlockJacobiSolvers.jl).
+
+    engine='batched': gather/solve/scatter VankaSolver. Anything else gives
+    the MaterializedVankaSmoother (one SpMV a field block)."""
+    from ..patches.vanka import VankaSolver
+
+    topo = _vertex_star_topology(mesh)
+    if engine != "batched":
+        from ..patches.materialized import MaterializedVankaSmoother
+
+        return MaterializedVankaSmoother(topo=topo, omega=omega, weighting=weighting)
+    return VankaSolver(topo=topo, omega=omega, weighting=weighting)
+
+
+def graddiv_patch_prolongation(
+    fine_mesh, coarse_mesh, base, K_aug, G, engine: str = "block", band_dtype=None,
+):
+    """Coarse-cell-interior Vanka patch prolongation for grad-div augmented
+    velocity GMG: xh = base(xH) - S_patch(G · base(xH)), the local LHS the
+    full augmented operator restricted to DISJOINT coarse-cell interiors.
+
+    engine='flat' materializes the patch solves into one SpMV a field
+    block and runs the rhs operator G as a `BlockedKernelOperator`."""
+    from ..patches.topology import coarse_cell_patches, concat_patches
+    from ..patches.transfer import PatchProlongation
+    from ..patches.vanka import VankaSolver
+
+    dim = len(fine_mesh.ncells)
+    gs = asm.node_grid_shape(fine_mesh, 2)
+    free = ~asm.boundary_node_mask(fine_mesh, 2).reshape(gs)
+    t = coarse_cell_patches(coarse_mesh.ncells, order=2, free_mask=free, interior=True)
+    n_u = int(np.prod(gs))
+    topo = concat_patches([t] * dim, [n_u] * dim)
+    if engine == "flat":
+        from ..algebra.flat import flat_kernel_operator
+        from ..patches.materialized import MaterializedVankaSmoother
+
+        vanka = MaterializedVankaSmoother(topo=topo, omega=1.0, weighting="unit",
+                                          jacobi_uncovered=False, band_dtype=band_dtype)
+        G = flat_kernel_operator(G, band_dtype=band_dtype)
+    else:
+        vanka = VankaSolver(topo=topo, omega=1.0, weighting="unit", jacobi_uncovered=False)
+    return PatchProlongation(base, K_aug, vanka, vanka.setup(K_aug), rhs_op=G)
 
 
 def cavity_lift(mesh: CartesianMesh, dtype=np.float64) -> tuple:
@@ -201,16 +319,21 @@ def stokes_problem(
     bc='cavity': the reference's actual StokesGMG problem, the lid-driven
     cavity with u = (1, 0, ..) on the top-face interior, zero forcing,
     inhomogeneous values lifted into the rhs (u_exact/p_exact are None).
-    graddiv_alpha > 0 and engine='flat' are not ported yet (slice 3b)."""
-    if graddiv_alpha > 0.0:
-        raise _not_ported("stokes_problem(graddiv_alpha > 0)")
-    if engine != "block":
-        raise _not_ported(f"stokes_problem(engine={engine!r})")
+
+    graddiv_alpha > 0 adds the augmented-Lagrangian grad-div term to the
+    velocity block (implies the P1disc pressure: the term is the cell-local
+    P1disc projection of the divergence, and the augmentation is consistent
+    only with the matching constraint Bp u = 0). Its velocity block is a
+    BlockOperator of banded component blocks (K2); engine='flat' turns it
+    into a `BlockedKernelOperator` of ELL field blocks (K3). engine is
+    ignored without the grad-div term, as in the JAX package."""
     dim = len(ncells)
     assert dim in (2, 3)
     assert bc in ("mms", "cavity")
-    pressure = pressure or "q1"
+    if pressure is None:
+        pressure = "p1disc" if graddiv_alpha > 0.0 else "q1"
     assert pressure in ("q1", "p1disc")
+    assert graddiv_alpha == 0.0 or pressure == "p1disc"
     dev = resolve_device(device)
     domain = tuple(x for _ in range(dim) for x in (0.0, 1.0))
     mesh = CartesianMesh(tuple(ncells), domain)
@@ -237,15 +360,22 @@ def stokes_problem(
         Bs.append(ell(B_csr))
         BTs.append(ell(B_csr.T.tocsr()))
 
-    # banded stencil on the Q2 node grid (5^d offset envelope), one
-    # operator shared by every component: kernel K2
-    K = stencil_from_scipy(K_csr, asm.node_grid_shape(mesh, 2), dtype=dtype, device=dev)
-    A = BlockOperator(
-        (
-            (FieldwiseOperator(tuple(K for _ in range(dim))), ColumnStack(tuple(BTs))),
-            (RowStack(tuple(Bs)), None),
-        )
-    )
+    Gs_full = asm.assemble_graddiv(mesh, 2, graddiv_alpha) if graddiv_alpha > 0.0 else None
+    if graddiv_alpha > 0.0:
+        # banded (StencilMatrix) component blocks K δ_cd + G_cd (kernel K2);
+        # the Vanka/patch machinery reads them through algebra/ell_view.py
+        Kv = graddiv_velocity_block(mesh, nu, graddiv_alpha, K_full=K_full, Gs=Gs_full,
+                                    banded=True, dtype=dtype, device=dev)
+        if engine == "flat":
+            from ..algebra.flat import flat_kernel_operator
+
+            Kv = flat_kernel_operator(Kv)
+    else:
+        # banded stencil on the Q2 node grid (5^d offset envelope), one
+        # operator shared by every component: kernel K2
+        K = stencil_from_scipy(K_csr, asm.node_grid_shape(mesh, 2), dtype=dtype, device=dev)
+        Kv = FieldwiseOperator(tuple(K for _ in range(dim)))
+    A = BlockOperator(((Kv, ColumnStack(tuple(BTs))), (RowStack(tuple(Bs)), None)))
 
     if pressure == "p1disc":
         Mp_csr = asm.pdisc_mass_matrix(mesh)
@@ -282,9 +412,14 @@ def stokes_problem(
         # values lifted into the rhs through the UNCONSTRAINED operators
         # on the host (identity rows carry the boundary values themselves)
         ug = cavity_lift(mesh)
-        b_u = tuple(
-            tensor(np.where(mask_u, ug[c], -(K_full @ ug[c]))) for c in range(dim)
-        )
+        lift = []
+        for c in range(dim):
+            lc = K_full @ ug[c]
+            if graddiv_alpha > 0.0:
+                for d in range(dim):
+                    lc = lc + Gs_full[c][d] @ ug[d]
+            lift.append(lc)
+        b_u = tuple(tensor(np.where(mask_u, ug[c], -lift[c])) for c in range(dim))
         b_p = tensor(-sum(B_fulls[c] @ ug[c] for c in range(dim)))
         u_exact, p_exact = None, None
 
@@ -309,6 +444,9 @@ def velocity_gmg(
     smoother=None,
     graddiv_alpha: float = 0.0,
     engine: str = "block",
+    flat_band_dtype=None,
+    flat_vanka_dtype="same",
+    cheby_degree: int = 0,
     dtype=torch.float64,
     device=None,
     **kw,
@@ -318,21 +456,34 @@ def velocity_gmg(
     K2) with fieldwise factor-2 transfers on the Q2 node grids (the Q2 dof
     grid of mesh n IS the vertex grid of mesh 2n, so the structured
     transfer applies directly). Mirrors StokesGMG.jl:129-154, where GMG is
-    built on the velocity FE-space hierarchy. Level operators and transfer
-    masks are in `dtype` on `device` (None: the card); the finest level's
+    built on the velocity FE-space hierarchy. Level operators and transfers
+    are in `dtype` on `device` (None: the card); the finest level's
     operator is the one passed to `setup`. `kw` goes to `GMGSolver`
-    (`ncycles`, `mode`, `coarsest_solver`, ...). graddiv_alpha > 0 and
-    engine='flat' are not ported yet (slice 3b)."""
+    (`ncycles`, `mode`, `coarsest_solver`, ...).
+
+    graddiv_alpha > 0 assembles the augmented-Lagrangian velocity biform
+    per level, smooths with vertex-star patch Vanka, Richardson(10, 0.2)
+    (the reference's smoother, StokesGMG.jl:57) or, with cheby_degree > 0,
+    Chebyshev of that degree over the Vanka (`PreconditionedChebyshevSmoother`),
+    and transfers by exact Q2 FE embeddings (R = Pᵀ) with coarse-cell
+    patch-corrected prolongations. engine='flat' runs every level operator
+    as ELL field blocks (K3), materializes each level's Vanka into one SpMV
+    a field block, and lowers the transfers to per-axis dense contractions
+    (`fe_transfer_pair_dense`); the block engine keeps banded levels (K2),
+    batched Vanka and ELL transfers (`fe_transfer_pair`, K3).
+
+    flat_band_dtype: storage dtype of the flat level operators' values
+    (bf16: f32 sums on K3). flat_vanka_dtype: that of the materialized
+    Vanka matrices; "same" follows flat_band_dtype. The Vanka entries mix
+    alpha-heavy (1e3) and O(1) scales inside each patch inverse, so bf16
+    there can degrade convergence at fine h while bf16 level operators stay
+    benign."""
     from ..linear.gmg import GMGSolver
     from ..linear.smoothers import ChebyshevSmoother
     from ..multilevel.hierarchy import cartesian_hierarchy
     from ..multilevel.multifield import MultiFieldTransfer
     from ..multilevel.transfer import StructuredProlongation, StructuredRestriction
 
-    if graddiv_alpha > 0.0:
-        raise _not_ported("velocity_gmg(graddiv_alpha > 0)")
-    if engine != "block":
-        raise _not_ported(f"velocity_gmg(engine={engine!r})")
     dim = len(ncells)
     dev = resolve_device(device)
     hierarchy = cartesian_hierarchy(ncells, num_levels)
@@ -347,19 +498,74 @@ def velocity_gmg(
         K1 = stencil_from_scipy(Kc, asm.node_grid_shape(mesh, 2), dtype=dtype, device=dev)
         return FieldwiseOperator(tuple(K1 for _ in range(dim)))
 
+    if graddiv_alpha > 0.0 and smoother is None:
+        from ..linear.smoothers import PreconditionedChebyshevSmoother, RichardsonSmoother
+
+        def _vanka_for(m):
+            if engine != "flat":
+                return velocity_vanka_smoother(m, omega=1.0)
+            from ..patches.materialized import MaterializedVankaSmoother
+
+            vdt = flat_band_dtype if flat_vanka_dtype == "same" else flat_vanka_dtype
+            return MaterializedVankaSmoother(topo=_vertex_star_topology(m), omega=1.0,
+                                             weighting="unit", band_dtype=vdt)
+
+        if cheby_degree > 0:
+            # Chebyshev over the Vanka-preconditioned operator; Vanka with
+            # 'unit' weighting is SPD, the Chebyshev requirement
+            smoother = [PreconditionedChebyshevSmoother(M=_vanka_for(m), degree=cheby_degree)
+                        for m in hierarchy.meshes[:-1]]
+        else:
+            smoother = [RichardsonSmoother(_vanka_for(m), niter=10, omega=0.2)
+                        for m in hierarchy.meshes[:-1]]
+
     prolongs, restricts = [], []
-    for l in range(num_levels - 1):
-        fine, coarse = hierarchy[l], hierarchy[l + 1]
-        fshape = asm.node_grid_shape(fine, 2)
-        cshape = asm.node_grid_shape(coarse, 2)
-        mf, mc = free(fine), free(coarse)
-        P = StructuredProlongation(fshape, cshape, mf)
-        R = StructuredRestriction(fshape, cshape, "residual", mc, mf)
-        prolongs.append(MultiFieldTransfer(tuple(P for _ in range(dim))))
-        restricts.append(MultiFieldTransfer(tuple(R for _ in range(dim))))
+    if graddiv_alpha > 0.0:
+        # EXACT Q2 FE-embedding transfers (R = Pᵀ): with rediscretized level
+        # operators the coarse correction is Galerkin on free dofs (the
+        # linear node-grid transfer's embedding error is amplified by alpha).
+        # Then patch-corrected prolongations (reference
+        # setup_patch_prolongation_operators, StokesGMG.jl:127-130 +
+        # PatchTransferOperators.jl:44-52): xh = Ih xH - S_patch(G_h Ih xH),
+        # the local solves on DISJOINT coarse-cell interiors with the full
+        # augmented operator, the right-hand side the grad-div term only.
+        from ..multilevel.transfer import fe_transfer_pair, fe_transfer_pair_dense
+
+        pairs = [graddiv_velocity_block(m, nu, graddiv_alpha, return_graddiv=True,
+                                        banded=True, dtype=dtype, device=dev)
+                 for m in hierarchy.meshes]
+        level_ops = [p[0] for p in pairs]
+        if engine == "flat":
+            from ..algebra.flat import flat_kernel_operator
+
+            level_ops = [flat_kernel_operator(op, band_dtype=flat_band_dtype)
+                         for op in level_ops]
+        coarse_ops = tuple(level_ops[1:])
+        make_pair = fe_transfer_pair_dense if engine == "flat" else fe_transfer_pair
+        for l in range(num_levels - 1):
+            fine, coarse = hierarchy[l], hierarchy[l + 1]
+            mask_f = asm.boundary_node_mask(fine, 2)
+            mask_c = asm.boundary_node_mask(coarse, 2)
+            Pe, Re = make_pair(coarse.ncells, 2, mask_f, mask_c, dtype=dtype, device=dev)
+            base = MultiFieldTransfer(tuple(Pe for _ in range(dim)))
+            restricts.append(MultiFieldTransfer(tuple(Re for _ in range(dim))))
+            prolongs.append(graddiv_patch_prolongation(
+                fine, coarse, base, level_ops[l], pairs[l][1], engine=engine,
+                band_dtype=flat_band_dtype))
+    else:
+        for l in range(num_levels - 1):
+            fine, coarse = hierarchy[l], hierarchy[l + 1]
+            fshape = asm.node_grid_shape(fine, 2)
+            cshape = asm.node_grid_shape(coarse, 2)
+            mf, mc = free(fine), free(coarse)
+            P = StructuredProlongation(fshape, cshape, mf)
+            R = StructuredRestriction(fshape, cshape, "residual", mc, mf)
+            prolongs.append(MultiFieldTransfer(tuple(P for _ in range(dim))))
+            restricts.append(MultiFieldTransfer(tuple(R for _ in range(dim))))
+        coarse_ops = tuple(assemble_K(m) for m in hierarchy.meshes[1:])
 
     return GMGSolver(
-        coarse_ops=tuple(assemble_K(m) for m in hierarchy.meshes[1:]),
+        coarse_ops=coarse_ops,
         prolongations=tuple(prolongs),
         restrictions=tuple(restricts),
         smoother=smoother or ChebyshevSmoother(degree=3),

@@ -11,6 +11,7 @@ from .smoothers import (  # noqa: F401
     ChebyshevSmoother,
     IdentitySolver,
     JacobiSolver,
+    PreconditionedChebyshevSmoother,
     RichardsonLinearSolver,
     RichardsonSmoother,
     estimate_dinv_a_lmax,

@@ -8,6 +8,11 @@ from .hierarchy import (  # noqa: F401
 from .transfer import (  # noqa: F401
     StructuredProlongation,
     StructuredRestriction,
+    TensorTransfer,
+    fe_grid_interpolation,
+    fe_interpolation_1d,
+    fe_transfer_pair,
+    fe_transfer_pair_dense,
     free_mask,
     setup_transfer_operators,
 )

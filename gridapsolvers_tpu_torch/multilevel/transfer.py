@@ -1,7 +1,11 @@
 """Grid transfer operators (prolongation / restriction).
 
 Port of the `impl="slices"` lowering of
-`gridapsolvers_tpu/multilevel/transfer.py`. On structured vertex grids with
+`gridapsolvers_tpu/multilevel/transfer.py`, and of its exact FE-embedding
+transfers (`fe_transfer_pair`: ELL P and R = Pᵀ on kernel K3;
+`fe_transfer_pair_dense`: the same maps as per-axis dense contractions,
+`TensorTransfer`, plain matrix products that the JAX package also computes
+outside any kernel of its own). On structured vertex grids with
 factor-2 refinement, Q1 interpolation is a per-axis interleave of values
 and midpoint averages, and full-weighting restriction is its transpose;
 both are slices, stacks and reshapes.
@@ -185,3 +189,133 @@ def setup_transfer_operators(
             )
         )
     return prolongations, restrictions
+
+
+# ---------------------------------------------------------------------------
+# exact FE-embedding transfers (nested spaces, any order)
+# ---------------------------------------------------------------------------
+
+
+def fe_interpolation_1d(n_coarse_cells: int, order: int = 2):
+    """1D nodal FE embedding matrix of the order-p Lagrange space on n
+    uniform cells into the space on 2n cells: (2pn+1, pn+1) scipy CSR.
+
+    EXACT for nested refinement: with R = Pᵀ the rediscretized coarse
+    operator equals the Galerkin product RAP on free dofs, which two-level
+    convergence needs for strongly anisotropic energies (e.g. the grad-div
+    augmented velocity block, where the linear node-grid transfer's O(h²)
+    embedding error is amplified by alpha)."""
+    import scipy.sparse as sp
+
+    n, p = n_coarse_cells, order
+    mc, mf = p * n + 1, 2 * p * n + 1
+    nodes = np.linspace(0.0, 1.0, p + 1)
+    L = np.zeros((2 * p + 1, p + 1))
+    for r in range(2 * p + 1):
+        xi = r / (2.0 * p)
+        for k in range(p + 1):
+            w = 1.0
+            for j in range(p + 1):
+                if j != k:
+                    w *= (xi - nodes[j]) / (nodes[k] - nodes[j])
+            L[r, k] = w
+    rows, cols, vals = [], [], []
+    for i in range(n):
+        for r in range(0 if i == 0 else 1, 2 * p + 1):
+            f = 2 * p * i + r
+            for k in range(p + 1):
+                if L[r, k] != 0.0:
+                    rows.append(f)
+                    cols.append(p * i + k)
+                    vals.append(L[r, k])
+    return sp.coo_matrix((vals, (rows, cols)), shape=(mf, mc)).tocsr()
+
+
+def fe_grid_interpolation(coarse_ncells, order: int = 2):
+    """Tensor-product FE embedding on a Cartesian grid (C-order node
+    numbering): kron of the per-axis 1D embeddings."""
+    import scipy.sparse as sp
+
+    P = None
+    for n in coarse_ncells:
+        P1 = fe_interpolation_1d(int(n), order)
+        P = P1 if P is None else sp.kron(P, P1, format="csr")
+    return P.tocsr()
+
+
+def fe_transfer_pair(coarse_ncells, order, mask_f=None, mask_c=None, dtype=torch.float64,
+                     device=None):
+    """(prolongation, restriction) as ELLMatrix operators (kernel K3) in
+    `dtype` on `device` (None: the card): P the exact FE embedding with
+    Dirichlet rows/cols zeroed, R = Pᵀ (residual mode)."""
+    from ..algebra.ell import ell_from_scipy
+    from ..fem import assembly2 as _asm
+
+    P = fe_grid_interpolation(coarse_ncells, order)
+    if mask_f is not None:
+        P = _asm.zero_rows(P, mask_f)
+    if mask_c is not None:
+        P = _asm.zero_columns(P, mask_c)
+    P.eliminate_zeros()
+    R = P.T.tocsr()
+    return (ell_from_scipy(P, dtype=dtype, device=device),
+            ell_from_scipy(R, dtype=dtype, device=device))
+
+
+@dataclasses.dataclass
+class TensorTransfer:
+    """Separable (Kronecker) grid transfer as per-axis DENSE contractions.
+
+    The FE embedding on a Cartesian grid is kron(P1d_0, ..., P1d_{D-1})
+    (`fe_grid_interpolation`), and the Dirichlet masking is diagonal on
+    both sides, so P_masked = diag(m_out) · kron(...) · diag(m_in). The
+    matvec is D tensordots with small dense (m_f, m_c) factors.
+
+    mats[d]: (out_d, in_d) dense factor for axis d. mask_in / mask_out:
+    optional flat {0,1} tensors (free-dof masks). Works as prolongation
+    (mats = P1d) or restriction (mats = P1dᵀ, masks swapped)."""
+
+    mats: Tuple[torch.Tensor, ...]
+    in_shape: Tuple[int, ...]
+    out_shape: Tuple[int, ...]
+    mask_in: Optional[torch.Tensor] = None
+    mask_out: Optional[torch.Tensor] = None
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mask_in is not None:
+            x = x.reshape(-1) * self.mask_in.reshape(-1)
+        y = x.reshape(self.in_shape)
+        for d, M in enumerate(self.mats):
+            y = torch.movedim(torch.tensordot(M.to(y.dtype), y, dims=([1], [d])), 0, d)
+        y = y.reshape(-1)
+        if self.mask_out is not None:
+            y = y * self.mask_out.reshape(-1)
+        return y
+
+    @property
+    def shape(self):
+        return (int(np.prod(self.out_shape)), int(np.prod(self.in_shape)))
+
+
+def fe_transfer_pair_dense(coarse_ncells, order, mask_f=None, mask_c=None,
+                           dtype=torch.float64, device=None):
+    """`fe_transfer_pair` as `TensorTransfer`s in `dtype` on `device`: the
+    same P and R = Pᵀ as per-axis dense contractions. masks are Dirichlet
+    masks (True = constrained), as fe_transfer_pair takes them."""
+    dev = resolve_device(device)
+    p1ds = [torch.from_numpy(fe_interpolation_1d(int(n), order).toarray()).to(dev, dtype)
+            for n in coarse_ncells]
+    cshape = tuple(order * int(n) + 1 for n in coarse_ncells)
+    fshape = tuple(2 * order * int(n) + 1 for n in coarse_ncells)
+
+    def free(mask):
+        if mask is None:
+            return None
+        return torch.from_numpy((~np.asarray(mask).reshape(-1)).astype(np.float64)).to(dev, dtype)
+
+    mf, mc = free(mask_f), free(mask_c)
+    P = TensorTransfer(mats=tuple(p1ds), in_shape=cshape, out_shape=fshape,
+                       mask_in=mc, mask_out=mf)
+    R = TensorTransfer(mats=tuple(m.T.contiguous() for m in p1ds), in_shape=fshape,
+                       out_shape=cshape, mask_in=mf, mask_out=mc)
+    return P, R

@@ -78,8 +78,28 @@ def ravel(x):
     return torch.cat([leaf.reshape(-1) for leaf in tree_leaves(x)])
 
 
+def tree_unflatten(template, leaves):
+    """A vector shaped like `template` whose leaves, in order, are
+    `leaves` (no copy)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(ti) for ti in t)
+        return next(it)
+
+    return build(template)
+
+
+def flatten_concat(x):
+    """(flat 1D tensor, info): pair with `unflatten_like(flat, info)`. The
+    info is the vector itself, as `unflatten_like` takes a template."""
+    return ravel(x), x
+
+
 def unflatten_like(flat, template):
-    """Inverse of `ravel` for a vector shaped like `template`."""
+    """Inverse of `ravel` (and `flatten_concat`) for a vector shaped like
+    `template`."""
     if not isinstance(template, (tuple, list)):
         return flat.reshape(template.shape)
     out, off = [], 0
