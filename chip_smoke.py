@@ -6,8 +6,8 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py [--profile DIR]
 
 It builds the three hand-written kernels from `gridapsolvers_tpu_torch/csrc/`
-(nvcc, sm_90a, all three at once) and drives the port's Poisson paths
-and Stokes paths through their public entry points, in phases that each
+(nvcc, sm_90a, all three at once) and drives the port's Poisson,
+Stokes and Navier-Stokes paths through their public entry points, in phases that each
 print one line:
 
   1 device   card name and power limit (nvidia-smi), TF32 off
@@ -41,6 +41,17 @@ print one line:
              at 512^2 in f64, its launches counted by block in set-up and
              solve; then K3 on every block of every level and K2 on the
              25-band blocks of H1 and H2 against their plain versions
+  6I path I  Navier-Stokes and Newton (BASELINE config 4), the lid-driven
+             cavity at Re = 10: I2, the JAX bench's ns_newton and
+             ns_graddiv rows at 32^2 in f32 (card = CPU Newton counts;
+             two-float NewtonRefinement after ns_graddiv); I1, ns_graddiv
+             (grad-div alpha 1e3, nonlinear velocity GMG with Chebyshev(4)
+             over the materialized Vanka refreshed at every Newton step,
+             patch prolongations, FGMRES(20), the values-only refresh
+             walker) at 512^2 in f64, its K3 launches counted by role in
+             set-up and Newton phase, set-up and each Newton step timed by
+             step, every refreshed block holding its set-up pattern; then K3
+             on every I1 block after its last refresh
   7 K3 ops   K3 on path C's own 128^3 level operators, P and R (f32, bf16
              values, one f64 level) against its plain version
   8 times    per-apply kernel, plain, library and bound times (K1
@@ -48,8 +59,9 @@ print one line:
              L2, in f32 and bf16, and its run-length sweep; K2 box against
              general; K3 with each operator's fill, read to row lengths and
              in full; K2 and K3 on path G's 512^2 operators; K3 on path H's
-             512^2 operators and K2 on its banded blocks), K3's lanes sweep,
-             and each 128^3 and 512^2 solve
+             512^2 operators and K2 on its banded blocks; K3 on path I1's
+             level-0 Jacobian blocks), K3's lanes sweep, and each 128^3 and
+             512^2 solve
 
 Each path's 128^3 run starts with every launch count at 0 and is read
 right after, so the counts show that every operator apply went through
@@ -61,7 +73,8 @@ raises, so a failure exits non-zero. The
 line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
 printing any result. `--profile DIR` adds a torch.profiler trace of one
-path C, G and H solve each (kernel tables in DIR, summary lines printed).
+path C, G and H solve each and of path I1's Newton run (kernel tables in
+DIR, summary lines printed).
 """
 from __future__ import annotations
 
@@ -76,6 +89,8 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -85,16 +100,22 @@ import torch
 # imported before anything is printed: a copy of this script without the
 # package fails here, with no output
 import gridapsolvers_tpu_torch.algebra.flat as flat_mod
+import gridapsolvers_tpu_torch.fem.navier_stokes as ns_mod
 import gridapsolvers_tpu_torch.fem.stokes as stokes_mod
 import gridapsolvers_tpu_torch.multilevel.transfer as transfer_mod
 import gridapsolvers_tpu_torch.patches.topology as topology_mod
 from gridapsolvers_tpu_torch import native
 from gridapsolvers_tpu_torch.algebra import ell_from_scipy, stencil_from_scipy, to_scipy
-from gridapsolvers_tpu_torch.algebra.block import ColumnStack, RowStack
+from gridapsolvers_tpu_torch.algebra.block import BlockOperator, ColumnStack, RowStack
 from gridapsolvers_tpu_torch.algebra.ell import ELLMatrix
 from gridapsolvers_tpu_torch.algebra.flat import BlockedKernelOperator
 from gridapsolvers_tpu_torch.algebra.stencil import StencilMatrix
-from gridapsolvers_tpu_torch.blocks import BlockTriangularSolver, LinearSystemBlock, MatrixBlock
+from gridapsolvers_tpu_torch.blocks import (
+    BlockTriangularSolver,
+    LinearSystemBlock,
+    MatrixBlock,
+    NonlinearSystemBlock,
+)
 from gridapsolvers_tpu_torch.fem import CartesianMesh, poisson_problem
 from gridapsolvers_tpu_torch.fem.assembly import eliminate_dirichlet, laplacian, laplacian_const
 from gridapsolvers_tpu_torch.fem import assembly2 as asm
@@ -110,6 +131,7 @@ from gridapsolvers_tpu_torch.linear import (
     JacobiSolver,
     MINRESSolver,
     PreconditionedChebyshevSmoother,
+    RichardsonSmoother,
 )
 from gridapsolvers_tpu_torch.linear.gmg import gmg_from_hierarchy
 from gridapsolvers_tpu_torch.models import (
@@ -119,11 +141,17 @@ from gridapsolvers_tpu_torch.models import (
     solve_stokes,
 )
 from gridapsolvers_tpu_torch.multilevel import cartesian_hierarchy
+from gridapsolvers_tpu_torch.nonlinear import NewtonSolver
+from gridapsolvers_tpu_torch.nonlinear.refinement import NewtonRefinement
 from gridapsolvers_tpu_torch.ops import banded_stencil as k2
 from gridapsolvers_tpu_torch.ops import build
 from gridapsolvers_tpu_torch.ops import const_stencil as k1
 from gridapsolvers_tpu_torch.ops import ell_spmv as k3
-from gridapsolvers_tpu_torch.patches import MaterializedVankaSmoother, VankaSolver
+from gridapsolvers_tpu_torch.patches import (
+    MaterializedVankaSmoother,
+    PatchProlongation,
+    VankaSolver,
+)
 from gridapsolvers_tpu_torch.utils import pytrees as pt
 
 F32_TOL = 1e-6   # max|y - y_ref| / max|y_ref|: reordered f32 sums, FMA contraction
@@ -194,6 +222,22 @@ H_VCYCLE_F64_TOL = 1e-10
 # path H2: solve_stokes((NC_H2, NC_H2), graddiv_alpha=1e3) (block engine), f64
 NC_H2 = 64
 H2_TOL = 1e-8        # its x, card against CPU (atomic scatter sums on the card)
+# path I: Navier-Stokes (BASELINE config 4), the lid-driven cavity at Re = 10.
+# I1: the JAX bench's ns_graddiv row (the reference's NavierStokesGMG
+# configuration) at NC_I^2 cells in f64, its velocity GMG down to 16^2 cells;
+# I2: the bench's ns_newton and ns_graddiv rows at their own size in f32
+NC_I = 512
+NS_NU = 0.1
+# I1's bands, set before the first card run from scripts/ns_graddiv_sweep.py
+# on the CPU (f64, the velocity GMG to 16^2 cells): 3 Newton steps at 64^2,
+# 128^2 and 256^2 (4 at 16^2 and 32^2), FGMRES its by step [1, 8, 8] at
+# every size; the centre u_x -0.2051615732 at 128^2 and -0.2051616931 at
+# 256^2, bounded at NC_I^2 by twice that change around the 256^2 value
+I_NEWTON_ITS = (3, 4)
+I_FGMRES_ITS = (1, 12)
+I_UX_CENTRE = -0.2051616931
+I_UX_BOUND = 2 * abs(-0.2051616931 - -0.2051615732)
+NC_I2, LEVELS_I2 = 32, 3
 KERNELS = ("const_stencil", "banded_stencil", "ell_spmv")
 COUNTS = {"K1": k1.counts, "K2": k2.counts, "K3": k3.counts}
 
@@ -345,6 +389,47 @@ def solve_g(nc, levels, dtype, device, maxiter=60):
                                                    "setup": t3 - t2}}
 
 
+def fence() -> None:
+    """Wait for the card, for a measurement: a sync that SyncCount leaves
+    out (it is the script's, not the program's)."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode(mode)
+
+
+class SyncCount:
+    """Host syncs the program makes while active, as PyTorch's sync debug
+    mode reports them: every read of a device value to the host (`.item()`,
+    `float()`, a device-to-host copy) and every stream synchronization.
+    `read()` is the count so far. Warnings other than these pass on."""
+
+    MESSAGE = "synchronizing CUDA operation"
+
+    def __enter__(self):
+        self.n = 0
+        self._catch = warnings.catch_warnings(record=True)
+        self._log = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def read(self) -> int:
+        log, self._log[:] = list(self._log), []
+        for w in log:
+            if self.MESSAGE in str(w.message):
+                self.n += 1
+            else:
+                print(warnings.formatwarning(w.message, w.category, w.filename, w.lineno),
+                      end="", file=sys.stderr)
+        return self.n
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self.read()
+        self._catch.__exit__(*exc)
+
+
 class StepTimes:
     """Set-up seconds by step while active: wraps the functions and methods
     that make each step and charges each call's time, less that of the
@@ -369,7 +454,8 @@ class StepTimes:
         ("LU", DenseLUSolver, "setup"),
     )
 
-    def __init__(self, device):
+    def __init__(self, device, steps=None):
+        self.steps = self.STEPS if steps is None else steps
         self.secs = collections.Counter()
         self._cuda = torch.device(device).type == "cuda"
         self._stack = []
@@ -378,14 +464,14 @@ class StepTimes:
     def _wrap(self, step, fn):
         def timed(*args, **kwargs):
             if self._cuda:
-                torch.cuda.synchronize()
+                fence()
             t0 = time.perf_counter()
             self._stack.append(0.0)
             try:
                 return fn(*args, **kwargs)
             finally:
                 if self._cuda:
-                    torch.cuda.synchronize()
+                    fence()
                 total = time.perf_counter() - t0
                 nested = self._stack.pop()
                 self.secs[step] += total - nested
@@ -394,7 +480,7 @@ class StepTimes:
         return timed
 
     def __enter__(self):
-        for step, owner, name in self.STEPS:
+        for step, owner, name in self.steps:
             fn = owner.__dict__[name]
             self._saved.append((owner, name, fn))
             setattr(owner, name, self._wrap(step, fn))
@@ -412,6 +498,8 @@ def ell_blocks(op) -> list:
         return [op]
     if isinstance(op, BlockedKernelOperator):
         return [b for row in op.kblocks for b in row if b is not None]
+    if isinstance(op, BlockOperator):
+        return [b for row in op.blocks for blk in row if blk is not None for b in ell_blocks(blk)]
     if isinstance(op, (ColumnStack, RowStack)):
         return [b for o in op.ops for b in ell_blocks(o)]
     raise TypeError(f"no ELL blocks in {type(op).__name__}")
@@ -581,6 +669,316 @@ def h_launches(n: int, cg_its: list, levels: int, degree: int, power_iters: int,
         solve[f"G{lv}"] = blocks[f"G{lv}"] * n
         solve[f"S{lv}"] = blocks[f"S{lv}"] * n
     return setup, solve
+
+
+class NewtonProbe:
+    """The linear solver of a Newton loop, wrapped: the same set-up, update
+    and solves, and for each solve its iterations, flag and seconds, with a
+    snapshot of the StepTimes counters at its start (the difference of two
+    snapshots is one Newton step's solve, residual and refresh by step),
+    and with a SyncCount given (`syncs`) its count at that start. `check`
+    runs on every set-up and refreshed state; `setup_state` keeps the first
+    (NewtonRefinement starts from it, as the JAX bench does)."""
+
+    def __init__(self, inner, steps, check=None):
+        self.inner, self.steps, self.check = inner, steps, check
+        self.log, self.setup_state, self.on_solve, self.syncs = [], None, None, None
+
+    def _sync(self, leaf):
+        if leaf.device.type == "cuda":
+            fence()
+
+    def setup(self, A, x=None):
+        state = self.inner.setup(A, x)
+        self.setup_state = self.state = state
+        if self.check is not None:
+            self.check(state)
+        return state
+
+    def update(self, state, A, x=None):
+        state = self.state = self.inner.update(state, A, x)
+        if self.check is not None:
+            self.check(state)
+        return state
+
+    def solve(self, state, b, x0=None):
+        if self.on_solve is not None:
+            self.on_solve()
+        leaf = pt.tree_leaves(b)[0]
+        self._sync(leaf)
+        snap = collections.Counter(self.steps.secs)
+        n_sync = self.syncs.read() if self.syncs is not None else None
+        t0 = time.perf_counter()
+        x, stats = self.inner.solve(state, b, x0)
+        self._sync(leaf)
+        self.log.append({"snap": snap, "solve_s": time.perf_counter() - t0,
+                         "its": stats.niter, "flag": int(stats.flag), "sync_at": n_sync})
+        return x, stats
+
+
+# StepTimes' steps for path I: set-up (host assembly, slot maps, grad-div
+# values, Jacobians, patch topologies, Vanka extraction and inversion,
+# materialization, transfers, λmax, LU, residual) and each Newton refresh
+# (Jacobians on every level, the smoothers' Vanka re-extraction, inversion and
+# materialized refresh, the patch prolongations' refresh, LU)
+I_STEPS = (
+    ("assembly", ns_mod, "navier_stokes_problem"),
+    ("assembly", ns_mod.Q2ConvectionAssembler, "__init__"),
+    ("slot maps", ns_mod, "_csr_slot_map"),
+    ("grad-div values", ns_mod, "_graddiv_ell_vals"),
+    ("Jacobian", ns_mod.NavierStokesProblem, "velocity_block"),
+    ("Jacobian", ns_mod.Q2ConvectionAssembler, "velocity_block"),
+    ("residual", ns_mod.NavierStokesProblem, "residual"),
+    ("patch topologies", stokes_mod, "_vertex_star_topology"),
+    ("patch topologies", topology_mod, "coarse_cell_patches"),
+    ("Vanka extraction and inversion", VankaSolver, "setup"),
+    ("materialization", MaterializedVankaSmoother, "setup"),
+    ("Vanka refresh", MaterializedVankaSmoother, "update"),
+    ("prolongation refresh", PatchProlongation, "update"),
+    ("transfers", transfer_mod, "fe_transfer_pair_dense"),
+    ("λmax", PreconditionedChebyshevSmoother, "_lmax"),
+    ("LU", DenseLUSolver, "setup"),
+)
+
+
+def setup_i(nc, levels, dtype, device, graddiv=True, atol=0.0, check=None):
+    """Path I through the public API, set up: the lid-driven cavity at Re =
+    10 (nu = 0.1) with `levels` velocity GMG levels (every update refreshes
+    through the walker), under the upper block-triangular preconditioner with
+    Jacobi-CG (rtol 1e-6, <= 30) on the pressure block and Newton (maxiter
+    12, rtol 1e-6, `atol`). graddiv (the JAX bench's ns_graddiv row,
+    bench.py:1355-1412): grad-div alpha 1e3, Q2/P1disc, Chebyshev(4) over
+    the materialized vertex-star Vanka, patch prolongations, coefficients
+    ((1, 1), (0, 1)) and -(1/alpha) Mp, FGMRES(20) rtol 1e-8 <= 60. Else
+    (ns_newton, bench.py:1205-1265): Q2/Q1, Richardson(1, 0.8) over the
+    materialized Vanka of the velocity block's rows (seed_field=-1),
+    ncycles=2, the pressure mass, FGMRES(40) rtol 1e-8 <= 100. Returns a
+    dict with the problem, Newton solver, its probe (NewtonProbe around the
+    FGMRES), the pressure operator, the inner CG iteration log, the active
+    StepTimes (entered here; `solve_i` exits it) and FGMRES's restart
+    length."""
+    cg_its = []
+    steps = StepTimes(device, I_STEPS).__enter__()
+    alpha = GD_ALPHA if graddiv else 0.0
+    prob = ns_mod.navier_stokes_problem((nc, nc), nu=NS_NU, graddiv_alpha=alpha, bc="cavity",
+                                        dtype=dtype, device=device)
+    if graddiv:
+        gmg = ns_mod.ns_velocity_gmg((nc, nc), levels, nu=NS_NU, graddiv_alpha=alpha,
+                                     bc="cavity", vanka_engine="materialized", cheby_degree=4,
+                                     dtype=dtype, device=device)
+        Mp = dataclasses.replace(prob.Mp, values=prob.Mp.values * (-1.0 / alpha))
+        coeffs, m, maxiter = ((1.0, 1.0), (0.0, 1.0)), 20, 60
+    else:
+        sm = RichardsonSmoother(MaterializedVankaSmoother(omega=1.0, seed_field=-1), niter=1,
+                                omega=0.8)
+        gmg = ns_mod.ns_velocity_gmg((nc, nc), levels, nu=NS_NU, smoother=sm, ncycles=2,
+                                     bc="cavity", dtype=dtype, device=device)
+        Mp, coeffs, m, maxiter = prob.Mp, None, 40, 100
+    P = BlockTriangularSolver(
+        solvers=(gmg, Recorded(CGSolver(Pl=JacobiSolver(), rtol=1e-6, maxiter=30), cg_its)),
+        blocks=((NonlinearSystemBlock(), None), (None, MatrixBlock(Mp))),
+        coeffs=coeffs, half="upper")
+    fgmres = FGMRESSolver(m=m, Pr=P, rtol=1e-8, maxiter=maxiter)
+    probe = NewtonProbe(fgmres, steps, check)
+    newton = NewtonSolver(probe, maxiter=12, rtol=1e-6, atol=atol)
+    return {"prob": prob, "gmg": gmg, "fgmres": fgmres, "probe": probe, "newton": newton,
+            "Mp": Mp, "cg_its": cg_its, "steps": steps, "m": m}
+
+
+def solve_i(run) -> dict:
+    """Newton from zero on a set-up path I run; adds its solution, stats,
+    set-up seconds by step (to the first solve), each Newton step's record
+    (residual, FGMRES its, solve seconds, the refresh after it by step, and
+    with the probe's SyncCount the host syncs from its solve's start to the
+    next's, or to the end) and the cavity-centre u_x. Leaves the StepTimes
+    wrappers."""
+    prob, steps, probe = run["prob"], run["steps"], run["probe"]
+    t0 = time.perf_counter()
+    try:
+        run["x"], run["stats"] = run["newton"].solve(prob, prob.zero_guess())
+        if run["x"][1].device.type == "cuda":
+            fence()
+    finally:
+        steps.__exit__(None, None, None)
+    run["newton_s"] = time.perf_counter() - t0
+    log = probe.log
+    snaps = [rec["snap"] for rec in log] + [collections.Counter(steps.secs)]
+    run["setup_secs"] = dict(snaps[0])
+    hist = run["stats"].residuals.numpy()
+    sync_at = [rec["sync_at"] for rec in log]
+    if probe.syncs is not None:
+        sync_at.append(probe.syncs.read())
+        run["setup_syncs"] = sync_at[0]
+    run["per_step"] = [
+        {"residual": float(hist[k + 1]), "its": rec["its"], "flag": rec["flag"],
+         "solve_s": rec["solve_s"],
+         "refresh": {step: v for step, v in (snaps[k + 1] - snaps[k]).items() if v > 0},
+         "syncs": None if probe.syncs is None else sync_at[k + 1] - sync_at[k]}
+        for k, rec in enumerate(log)]
+    nc = prob.mesh.ncells[0]
+    run["ux_centre"] = float(run["x"][0][0].reshape(2 * nc + 1, 2 * nc + 1)[nc, nc])
+    return run
+
+
+class IRoles:
+    """K3 launches of a path I run by role while active, in its set-up and
+    its Newton phase apart (`phase`, set to "Newton" when the first linear
+    solve starts). It wraps `ELLMatrix.matvec` (the only caller of K3's
+    wrapper) and names each launched block's role at launch time, holding
+    no block: inside the problem's residual, "res K" (its row-masked
+    velocity blocks), "res G" (its grad-div blocks), "res Bt", "res B";
+    elsewhere "J{l}" for level l's Jacobian blocks (their values tensors,
+    held weakly, registered as `velocity_block` makes them; the walker
+    hands on the same values), "M{l}" for level l's materialized Vanka blocks (by their
+    columns tensor, which each refresh keeps), "G{l}" for level l's
+    patch-prolongation grad-div blocks, and "B", "Bt", "Mp" (by their
+    values tensors, which the walker hands on). A launch of no
+    role, or on a block without row lengths, is recorded and fails the
+    run. `n_u` lists the velocity unknowns by level."""
+
+    def __init__(self, n_u):
+        self.n_u = list(n_u)
+        self.counts = collections.Counter()    # (phase, role)
+        self.pos = collections.Counter()       # (role, (a, b)) for Jacobian blocks
+        self.shapes = collections.Counter()
+        self.stray, self.no_row_len = collections.Counter(), 0
+        self.phase, self.in_residual = "set-up", 0
+        self.jac, self.m_cols, self.fixed, self.g_vals = {}, {}, {}, {}
+        self.prob = None
+        self._saved = []
+
+    def install(self, run) -> None:
+        """The run's fixed blocks: B, Bt, the pressure operator and each
+        prolongation level's grad-div blocks."""
+        prob = self.prob = run["prob"]
+        for role, blocks in (("B", prob.Bs), ("Bt", prob.BTs), ("Mp", (run["Mp"],))):
+            self.fixed.update({id(b.values): (role, b.values) for b in blocks})
+        for lv, P in enumerate(run["gmg"].prolongations):
+            for row in P.rhs_op.blocks:
+                self.g_vals.update({id(b.values): (lv, b.values) for b in row})
+        run["probe"].on_solve = self.newton_phase
+
+    def newton_phase(self) -> None:
+        self.phase = "Newton"
+
+    def role(self, blk) -> str:
+        vid = id(blk.values)
+        if self.in_residual:
+            p = self.prob
+            if blk.cols is p.cols_ell:
+                gd = [g for row in (p.gd_res_vals or ()) for g in row]
+                return "res G" if any(blk.values is g for g in gd) else "res K"
+            return "res Bt" if any(blk is b for b in p.BTs) else "res B"
+        if vid in self.fixed:
+            return self.fixed[vid][0]
+        if vid in self.g_vals:
+            return f"G{self.g_vals[vid][0]}"
+        lv, ab, ref = self.jac.get(vid, (None, None, lambda: None))
+        if ref() is blk.values:
+            self.pos[f"J{lv}", ab] += 1
+            return f"J{lv}"
+        if id(blk.cols) in self.m_cols:
+            return f"M{self.m_cols[id(blk.cols)][0]}"
+        return ""
+
+    def _wrap(self, owner, name, make):
+        fn = owner.__dict__[name]
+        self._saved.append((owner, name, fn))
+        setattr(owner, name, make(fn))
+
+    def __enter__(self):
+        roles = self
+
+        def matvec(fn):
+            def counted(blk, x):
+                role = roles.role(blk)
+                if not role:
+                    roles.stray[blk.shape] += 1
+                if blk.row_len is None:
+                    roles.no_row_len += 1
+                roles.counts[roles.phase, role] += 1
+                roles.shapes[blk.shape] += 1
+                return fn(blk, x)
+            return counted
+
+        def residual(fn):
+            def wrapped(prob, x):
+                roles.in_residual += 1
+                try:
+                    return fn(prob, x)
+                finally:
+                    roles.in_residual -= 1
+            return wrapped
+
+        def velocity_block(fn):
+            def wrapped(obj, u, newton=True):
+                op = fn(obj, u, newton)
+                for k in [k for k, v in roles.jac.items() if v[2]() is None]:
+                    del roles.jac[k]   # values gone
+                lv = roles.n_u.index(obj.n_u)
+                for a, row in enumerate(op.blocks):
+                    for b, blk in enumerate(row):
+                        roles.jac[id(blk.values)] = (lv, (a, b), weakref.ref(blk.values))
+                return op
+            return wrapped
+
+        def vanka_setup(fn):
+            def wrapped(smoother, A, x=None):
+                state = fn(smoother, A, x)
+                lv = roles.n_u.index(state["Mv"].sizes[0])
+                for row in state["Mv"].kblocks:
+                    roles.m_cols.update({id(b.cols): (lv, b.cols) for b in row if b is not None})
+                return state
+            return wrapped
+
+        self._wrap(ELLMatrix, "matvec", matvec)
+        self._wrap(ns_mod.NavierStokesProblem, "residual", residual)
+        self._wrap(ns_mod.NavierStokesProblem, "velocity_block", velocity_block)
+        self._wrap(ns_mod.Q2ConvectionAssembler, "velocity_block", velocity_block)
+        self._wrap(MaterializedVankaSmoother, "setup", vanka_setup)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+        self._saved.clear()
+        self.jac.clear()
+
+
+def i_launches(per_step, cg_its, levels, degree, power_iters, m, m_blocks) -> dict:
+    """K3 launches of one path I1 run by role (fem/navier_stokes.py,
+    nonlinear/newton.py, linear/gmres.py, blocks/block_solvers.py,
+    linear/gmg.py, linear/smoothers.py, patches/*.py): {phase: {role: n}}.
+    Each cavity residual applies its row-masked velocity block once a
+    component (res K 2), the grad-div blocks (res G 4), Bt (2) and B (2).
+    Set-up: the residual at the start, and on each smoothing level the λmax
+    power iteration's `power_iters` applies of the level Jacobian (4
+    blocks) and of its Vanka (`m_blocks[l]` blocks). Newton phase: the
+    residual after each step; step k's FGMRES applies the Jacobian (J0, B,
+    Bt) 1 + c_k + n_k times (c_k restart cycles) and the preconditioner n_k
+    times: each runs the pressure CG (its iterations + 1 Mp applies), Bt
+    once and one V-cycle, which on smoothing level l applies the Jacobian
+    2k+1 times, the Vanka 2(k+1) times and the prolongation's grad-div
+    blocks (4) once, and on the coarsest level the Jacobian once. The
+    refreshes launch nothing."""
+    res = {"res K": 2, "res G": 4, "res Bt": 2, "res B": 2}
+    setup = dict(res)
+    for lv in range(levels - 1):
+        setup[f"J{lv}"] = 4 * power_iters
+        setup[f"M{lv}"] = m_blocks[lv] * power_iters
+    steps = len(per_step)
+    a = sum(1 + -(-s["its"] // m) + s["its"] for s in per_step)
+    n = sum(s["its"] for s in per_step)
+    newton = {r: v * steps for r, v in res.items()}
+    newton.update({"B": 2 * a, "Bt": 2 * (a + n), "Mp": sum(c + 1 for c in cg_its)})
+    for lv in range(levels):
+        if lv == levels - 1:
+            newton[f"J{lv}"] = 4 * n
+            continue
+        newton[f"J{lv}"] = 4 * n * (2 * degree + 1) + (4 * a if lv == 0 else 0)
+        newton[f"M{lv}"] = m_blocks[lv] * n * 2 * (degree + 1)
+        newton[f"G{lv}"] = 4 * n
+    return {"set-up": setup, "Newton": newton}
 
 
 def ell_csr(A: ELLMatrix, index=torch.int32) -> torch.Tensor:
@@ -1530,6 +1928,199 @@ def main() -> None:
           + f" {elapsed()}", flush=True)
     lines.clear()
     del run16
+    # H1's solve time and trace are taken here, and only the blocks phase 8
+    # times are kept, so that H1's state is gone before path I
+    t_solve_h = median_ms(lambda: run_h["solver"].solve(run_h["state"], run_h["prob"].b),
+                          runs=3, warmup=1, spin=False)
+    if opts.profile is not None:
+        summary = profile_solve(lambda: run_h["solver"].solve(run_h["state"], run_h["prob"].b),
+                                opts.profile, "path_H_f64")
+        print(f"[profile] path H f64 solve, {card}: {summary} {elapsed()}", flush=True)
+    h_timed_launches = {name: sum(bc.of([blk], ph) for ph in counted)
+                        for name, blk in h_ops.items()}
+    h_kg_banded = run_h["prob"].K.inner.blocks[0][0]
+    h1_its = run_h["stats"].niter
+    del run_h, role_blocks, bc, prob, x, stH, leaves, Mv, pr, r, op, bl
+    torch.cuda.empty_cache()
+
+    # ---- 6I path I: Navier-Stokes and Newton ----------------------------
+    # BASELINE config 4, the lid-driven cavity at Re = 10. First I2, the JAX
+    # bench's ns_newton and ns_graddiv rows (bench.py:1205-1265, 1355-1470)
+    # at their own size in f32, card and CPU, with two NewtonRefinement
+    # steps after ns_graddiv; then I1, the ns_graddiv configuration at
+    # NC_I^2 in f64 with atol 0, its K3 launches counted by role in set-up
+    # and in the Newton phase apart, set-up and each Newton step timed by step
+    small = []
+    i2 = {}
+    for name, kw in (("ns_newton", dict(graddiv=False, atol=1e-8)),
+                     ("ns_graddiv", dict(atol=3e-3))):
+        for d in (dev, "cpu"):
+            run = i2[name, d] = solve_i(setup_i(NC_I2, LEVELS_I2, f32, d, **kw))
+            if name == "ns_graddiv":
+                _, _, run["rnorms"] = NewtonRefinement(run["fgmres"], niter=2).refine(
+                    run["prob"], run["x"], run["probe"].setup_state)
+        sc, sh = i2[name, dev]["stats"], i2[name, "cpu"]["stats"]
+        # equal Newton counts, or one apart where the run that went on had,
+        # at the other's count, a residual within 10% of its target (the f32
+        # residual floor sits at the target: ns_graddiv's atol 3e-3)
+        longer = sc if sc.niter > sh.niter else sh
+        lh = longer.residuals.numpy()
+        target = max(kw["atol"], 1e-6 * lh[0])
+        apart = abs(sc.niter - sh.niter)
+        assert sc.flag == sh.flag and sc.converged() and (
+            apart == 0 or (apart == 1 and lh[min(sc.niter, sh.niter)] <= 1.1 * target)), (
+            name, sc.niter, sh.niter, sc.flag, sh.flag, lh)
+        part = {}
+        for d in (dev, "cpu"):
+            run = i2[name, d]
+            h = run["stats"].residuals.numpy()
+            part[d] = (f"{run['stats'].niter} Newton its, flag {run['stats'].flag}, final "
+                       f"residual {h[run['stats'].niter]:.3e}, FGMRES its by step "
+                       f"{[s_['its'] for s_ in run['per_step']]}, centre u_x "
+                       f"{run['ux_centre']:.6f}, Newton {run['newton_s']:.2f} s")
+            if "rnorms" in run:
+                rel = run["rnorms"][-1] / float(np.nanmax(h))
+                run["refined_rel"] = rel
+                part[d] += (f", NewtonRefinement(2) compensated residuals "
+                            + " ".join(f"{v:.3e}" for v in run["rnorms"])
+                            + f", relative to the history's max {rel:.3e}")
+        small.append(f"I2 {name} {NC_I2}^2/{LEVELS_I2} levels f32: card {part[dev]}; CPU plain "
+                     f"path {part['cpu']}")
+    del i2, run
+    # I1, counted
+    levels_i = int(math.log2(NC_I // 16)) + 1
+    n_u_levels = [(2 * (NC_I >> lv) + 1) ** 2 for lv in range(levels_i)]
+    first_pattern, refreshes = [], [0]
+
+    def keep_pattern(state):
+        """The set-up's and every refreshed state's ELL blocks (the outer
+        Jacobian, each level's Jacobian, each level's materialized Vanka)
+        carry row lengths and keep the set-up's cols, row_len and group."""
+        gst = state["Pr"]["states"][0]
+        blocks = ([("A", b) for b in ell_blocks(state["A"])]
+                  + [(f"J{lv}", b) for lv, m_ in enumerate(gst["mats"]) for b in ell_blocks(m_)]
+                  + [(f"M{lv}", b) for lv, s_ in enumerate(gst["pre"])
+                     for b in ell_blocks(s_["M"]["Mv"])])
+        assert all(b.row_len is not None for _, b in blocks), "a block without row lengths"
+        now = [(n_, b.cols.data_ptr(), b.row_len.data_ptr(), b.group) for n_, b in blocks]
+        if not first_pattern:
+            first_pattern.extend(now)
+        assert now == first_pattern, "a refresh changed a block's cols, row_len or group"
+        refreshes[0] += 1
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    with IRoles(n_u_levels) as roles, SyncCount() as syncs:
+        run_i = setup_i(NC_I, levels_i, f64, dev, check=keep_pattern)
+        run_i["probe"].syncs = syncs
+        roles.install(run_i)
+        solve_i(run_i)
+    launches["I f64"] = read_counts(k2_box=False)
+    mem_gb = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+    kept_gb = (torch.cuda.memory_allocated() - mem0) / 2 ** 30
+    prob_i, x_i, st_i = run_i["prob"], run_i["x"], run_i["stats"]
+    state_i = run_i["probe"].state
+    gst_i = state_i["Pr"]["states"][0]
+    per_step, n_i = run_i["per_step"], st_i.niter
+    hist_i = st_i.residuals.numpy()
+    m_blocks = [len(ell_blocks(s_["M"]["Mv"])) for s_ in gst_i["pre"]]
+    power_iters = PreconditionedChebyshevSmoother().power_iters
+    want_i = i_launches(per_step, run_i["cg_its"], levels_i, 4, power_iters, run_i["m"], m_blocks)
+    counted_i = {ph: {r_: c for (p_, r_), c in roles.counts.items() if p_ == ph} for ph in want_i}
+    assert not roles.stray and roles.no_row_len == 0, (dict(roles.stray), roles.no_row_len)
+    assert counted_i == want_i, (counted_i, want_i)
+    assert dict(roles.shapes) == dict(k3.counts.shapes), (dict(roles.shapes), k3.counts.shapes)
+    assert launches["I f64"]["K1"] == launches["I f64"]["K2"] == 0 and not k2.counts.shapes
+    assert refreshes[0] == n_i, (refreshes[0], n_i)  # the set-up and n - 1 refreshes
+    assert int(st_i.flag) == 2 and I_NEWTON_ITS[0] <= n_i <= I_NEWTON_ITS[1], (n_i, st_i.flag)
+    assert all(I_FGMRES_ITS[0] <= s_["its"] <= I_FGMRES_ITS[1] for s_ in per_step), per_step
+    assert hist_i[n_i] <= 1e-6 * hist_i[0], hist_i
+    leaves = pt.tree_leaves(x_i)
+    assert [t.shape[0] for t in leaves] == [(2 * NC_I + 1) ** 2] * 2 + [3 * NC_I ** 2]
+    assert all(t.dtype == f64 and bool(torch.isfinite(t).all()) for t in leaves)
+    ux = run_i["ux_centre"]
+    assert ux < 0 and abs(ux - I_UX_CENTRE) <= I_UX_BOUND, (ux, I_UX_CENTRE, I_UX_BOUND)
+    steps_txt, k_cg = [], 0
+    for k, s_ in enumerate(per_step):
+        cgs = run_i["cg_its"][k_cg: k_cg + s_["its"]]
+        k_cg += s_["its"]
+        # the host syncs the code's reads predict: the Newton residual norm,
+        # FGMRES's first residual, one a restart cycle and one an iteration,
+        # each inner CG's first residual and one an iteration
+        s_["syncs_formula"] = (1 + 1 + -(-s_["its"] // run_i["m"]) + s_["its"]
+                               + sum(c + 1 for c in cgs))
+        steps_txt.append(
+            f"step {k + 1}: residual {s_['residual']:.3e}, FGMRES {s_['its']} its, solve "
+            f"{s_['solve_s']:.3f} s, then " + ", ".join(f"{st_} {v:.3f} s"
+                                                        for st_, v in s_["refresh"].items())
+            + f", host syncs {s_['syncs']} measured ({s_['syncs_formula']} from the formula)")
+    print(f"[6I path I] Navier-Stokes (lid-driven cavity, Re = 10): " + "; ".join(small)
+          + f"; I1 {NC_I}^2/{levels_i} levels f64 (grad-div alpha 1e3, Q2/P1disc, Chebyshev(4) "
+          f"over the materialized Vanka, patch prolongations, FGMRES(20) rtol 1e-8 <= 60, "
+          f"Newton rtol 1e-6 atol 0, the walker at every update; counted): {n_i} Newton its (band "
+          f"{I_NEWTON_ITS}), flag CONVERGED_RTOL, residuals "
+          + " ".join(f"{v:.3e}" for v in hist_i[: n_i + 1])
+          + f" (final / r0 {hist_i[n_i] / hist_i[0]:.3e}), centre u_x {ux:.10f} (within "
+          f"{I_UX_BOUND:.2e} of {I_UX_CENTRE}); " + "; ".join(steps_txt)
+          + f"; set-up {sum(run_i['setup_secs'].values()):.2f} s by step: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in run_i["setup_secs"].items())
+          + f"; set-up host syncs {run_i['setup_syncs']} measured (PyTorch's sync debug "
+          f"mode, the timing fences left out); Newton {run_i['newton_s']:.2f} s; device "
+          f"memory over what the earlier paths "
+          f"hold: peak {mem_gb:.2f} GiB, {kept_gb:.2f} GiB kept; every set-up and refreshed "
+          f"block kept its set-up cols, row_len and group ({refreshes[0]} states); K3 "
+          f"launches {launches['I f64']['K3']} by role (set-up + Newton, each equal to its "
+          f"i_launches term): "
+          + ", ".join(f"{r_} {counted_i['set-up'].get(r_, 0)} + {counted_i['Newton'].get(r_, 0)}"
+                      for r_ in sorted(set(counted_i["set-up"]) | set(counted_i["Newton"])))
+          + f"; by shape equal to the kernel's counts; K1 0, K2 0, plain launches 0 "
+          f"{elapsed()}", flush=True)
+    # K3 on every ELL block of I1 after its last refresh (each level's
+    # Jacobian, the outer Jacobian, each level's materialized Vanka and
+    # prolongation grad-div blocks, the residual's row-masked blocks, B, Bt,
+    # the residual's B, Mp) against its plain version, f64 and f32
+    conv, _ = prob_i._convection_elems(x_i[0], newton=False)
+    i_blocks = {"A": ell_blocks(state_i["A"]), "Mp": [run_i["Mp"]],
+                "res K": [prob_i._ell(prob_i.res_vals + prob_i._scatter(
+                    conv, mask=prob_i.row_mask_ell))],
+                "res G": [prob_i._ell(g) for row in prob_i.gd_res_vals for g in row],
+                "res B": list(prob_i.res_Bs)}
+    del conv
+    for lv, m_ in enumerate(gst_i["mats"]):
+        i_blocks[f"J{lv}"] = ell_blocks(m_)
+    for lv, (s_, P_) in enumerate(zip(gst_i["pre"], gst_i["P"])):
+        i_blocks[f"M{lv}"] = ell_blocks(s_["M"]["Mv"])
+        i_blocks[f"G{lv}"] = ell_blocks(P_.rhs_op)
+    by_role = []
+    for role, bl_ in i_blocks.items():
+        assert all(b.row_len is not None for b in bl_), role
+        err = {dt: max(check_ell(f"K3[I {NC_I}^2 {role}.{i} {A_.nrows}x{A_.ncols}]"
+                                 f"{str(dt)[6:]}", A_, vec(A_.ncols, dt), tol)
+                       for i, A_ in enumerate(b.astype(dt) for b in bl_))
+               for dt, tol in ((f32, F32_TOL), (f64, F64_TOL))}
+        by_role.append(f"{role} {len(bl_)}x{bl_[0].nrows}x{bl_[0].ncols} K<="
+                       f"{max(b.row_width for b in bl_)} f32 {err[f32]:.1e} f64 {err[f64]:.1e}")
+    print(f"[6I kernels] {len(lines)} cases on path I1's blocks after its last refresh within "
+          f"f32 {F32_TOL:.0e} / f64 {F64_TOL:.0e}, worst by role (blocks x rows x columns): "
+          + ", ".join(by_role) + f" {elapsed()}", flush=True)
+    lines.clear()
+    if opts.profile is not None:  # the Newton run again from zero, on the same problem and GMG
+        run_i["probe"].check = None
+        summary = profile_solve(lambda: run_i["newton"].solve(prob_i, prob_i.zero_guess()),
+                                opts.profile, "path_I_f64")
+        print(f"[profile] path I1 Newton run (solver set-up and {n_i} steps), {card}: {summary} "
+              f"{elapsed()}", flush=True)
+    # the timed blocks (phase 8): level 0's Jacobian block (0,0) and its N2
+    # off-diagonal block (0,1), with their launches counted in I1's run
+    J0 = state_i["A"].blocks[0][0]
+    i_ops = {"J0 (0,0)": J0.blocks[0][0], "J0 (0,1)": J0.blocks[0][1]}
+    i_timed_launches = {"J0 (0,0)": roles.pos["J0", (0, 0)], "J0 (0,1)": roles.pos["J0", (0, 1)]}
+    i_roles = {r_: {ph: counted_i[ph].get(r_, 0) for ph in counted_i}
+               for r_ in sorted(set(counted_i["set-up"]) | set(counted_i["Newton"]))}
+    i_shapes = {f"{r_}x{c_}": n_ for (r_, c_), n_ in sorted(roles.shapes.items())}
+    del run_i, prob_i, x_i, st_i, state_i, gst_i, i_blocks, roles, J0, leaves
+    torch.cuda.empty_cache()
 
     # ---- 7 K3 on path C's own operators ---------------------------------
     ops = ([(f"level {i}", m) for i, m in enumerate(amg["mats"]) if i > 0]
@@ -1735,7 +2326,7 @@ def main() -> None:
                            f"G={A.group}", e)
             del csr
     h2_ops = {f"K+G {NC_H2}^2": prob_h2.K.blocks[0][0], f"G {NC_H2}^2": prob_h2.K.blocks[0][1],
-              f"K+G {NC_H}^2": run_h["prob"].K.inner.blocks[0][0]}
+              f"K+G {NC_H}^2": h_kg_banded}
     for name, A64 in h2_ops.items():
         key = f"H2 {name}"
         A = A64.astype(f64)
@@ -1750,6 +2341,26 @@ def main() -> None:
         assert e <= F64_TOL, f"{key}: kernel vs cuSPARSE {e:.2e}"
         h_keys[key] = (f"25 bands on {A.grid_shape[0]}^2, {csr._nnz()} entries", e)
         del csr
+    # path I1's level-0 Jacobian blocks at NC_I^2 in f64 (I1's dtype) and
+    # f32, as path H's blocks above
+    i_keys = {}
+    for name, A64 in i_ops.items():
+        for dt in (f64, f32):
+            A = A64.astype(dt)
+            key = f"I {name} f{torch.finfo(dt).bits}"
+            xi = vec(A.ncols, dt)
+            t[key] = median_ms(lambda: A.matvec(xi))
+            t[f"{key} plain"] = median_ms(lambda: k3.ell_spmv_plain(A.values, A.cols, xi,
+                                                                     A.row_len))
+            csr = ell_csr(A)
+            t[f"{key} library"] = median_ms(lambda: torch.mv(csr, xi))
+            bound[key] = ell_bound_ms(A, xi)
+            e = relerr(A.matvec(xi), torch.mv(csr, xi))
+            assert e <= (F32_TOL if dt == f32 else F64_TOL), f"{key}: kernel vs cuSPARSE {e:.2e}"
+            real = ell_fill(A)[0]
+            i_keys[key] = (f"{A.nrows}x{A.ncols}, {real} entries, mean row "
+                           f"{real / A.nrows:.2f}, K={A.row_width}, G={A.group}", e)
+            del csr
     # K3's lanes a row, read to row lengths and in full
     sweep = []
     for tag, A in k3_ops.items():
@@ -1773,8 +2384,7 @@ def main() -> None:
     for tag, run in runs_g.items():
         t[f"solve {tag}"] = median_ms(lambda: run["solver"].solve(run["state"], run["prob"].b),
                                       runs=5, warmup=1, spin=False)
-    t["solve H f64"] = median_ms(lambda: run_h["solver"].solve(run_h["state"], run_h["prob"].b),
-                                 runs=3, warmup=1, spin=False)
+    t["solve H f64"] = t_solve_h
     t["solve H2"] = median_ms(
         lambda: infoh2["solver"].solve(infoh2["state"], prob_h2.b), runs=5, warmup=1, spin=False)
     for variant, (prob, solver, state, *_) in runs_f.items():
@@ -1836,9 +2446,15 @@ def main() -> None:
           + "; ".join(f"{key} ({desc}) kernel {t[key]:.4f}, plain {t[key + ' plain']:.4f}, "
                       f"cuSPARSE int32 {t[key + ' library']:.4f}, bound {bound[key]:.4f}, "
                       f"kernel vs cuSPARSE y {e:.1e}" for key, (desc, e) in h_keys.items())
-          + f" | solve only: H1 {NC_H}^2 f64 ({run_h['stats'].niter} its) median of 3 "
+          + f" | solve only: H1 {NC_H}^2 f64 ({h1_its} its) median of 3 "
           f"{t['solve H f64']:.2f} ms; H2 {NC_H2}^2 ({sth2.niter} its) median of 5 "
           f"{t['solve H2']:.2f} ms {elapsed()}", flush=True)
+    print(f"[8 I] {card} | path I1's level-0 Jacobian blocks at {NC_I}^2 (K3) in f64 and "
+          f"f32, median of {TIMING_RUNS} (CUDA events), ms per apply: "
+          + "; ".join(f"{key} ({desc}) kernel {t[key]:.4f}, plain {t[key + ' plain']:.4f}, "
+                      f"cuSPARSE int32 {t[key + ' library']:.4f}, bound {bound[key]:.4f}, "
+                      f"kernel vs cuSPARSE y {e:.1e}" for key, (desc, e) in i_keys.items())
+          + f" {elapsed()}", flush=True)
     if opts.profile is not None:
         summary = profile_solve(lambda: cgC.solve(stateC, probC.b), opts.profile, "path_c")
         print(f"[profile] path C solve, {card}: {summary} {elapsed()}", flush=True)
@@ -1846,9 +2462,6 @@ def main() -> None:
             summary = profile_solve(lambda: run["solver"].solve(run["state"], run["prob"].b),
                                     opts.profile, f"path_{tag.replace(' ', '_')}")
             print(f"[profile] path {tag} solve, {card}: {summary} {elapsed()}", flush=True)
-        summary = profile_solve(lambda: run_h["solver"].solve(run_h["state"], run_h["prob"].b),
-                                opts.profile, "path_H_f64")
-        print(f"[profile] path H f64 solve, {card}: {summary} {elapsed()}", flush=True)
 
     def row(key, name, source, replaces, shape_key):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1893,13 +2506,16 @@ def main() -> None:
                 "library_ms": r4(t[f"{key} library"]), "launches": launches_n}
 
     k3_row["stokes_graddiv"] = {
-        key: h_entry(key, sum(bc.of([h_ops[key[2:-4]]], ph) for ph in counted))
-        for key in h_keys if key.startswith("H ")}
+        key: h_entry(key, h_timed_launches[key[2:-4]]) for key in h_keys if key.startswith("H ")}
     k3_row["stokes_graddiv"]["launches_by_role"] = {
         role: {ph: counted[ph][role] for ph in counted} for role in blocks}
     k3_row["stokes_graddiv"]["launches_by_shape"] = {
         f"{r}x{c}": n for (r, c), n in sorted(shapes_h["K3"].items())}
     k3_row["stokes_graddiv"]["H2 launches"] = launches["H2"]["K3"]
+    # path I1: each timed block's launches in its run, and every role's
+    k3_row["navier_stokes"] = {key: h_entry(key, i_timed_launches[key[2:-4]]) for key in i_keys}
+    k3_row["navier_stokes"]["launches_by_role"] = i_roles
+    k3_row["navier_stokes"]["launches_by_shape"] = i_shapes
     k2_row["stokes_graddiv_h2"] = {
         key: h_entry(key, sum(c for g, c in shapes_h2["K2"].items()
                               if g == (25,) + h2_ops[key[3:]].grid_shape))

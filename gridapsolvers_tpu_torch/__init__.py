@@ -10,14 +10,17 @@ its layout and names so each module has an obvious counterpart:
                     the dtype-cast walker, two-float arithmetic, device
                     resolution.
 - ``fem``         : structured Cartesian meshes, Q1 and general
-                    tensor-element assembly (host NumPy/scipy), the Poisson
-                    and Taylor-Hood Stokes model problems.
+                    tensor-element assembly (host NumPy/scipy), the Poisson,
+                    Taylor-Hood Stokes and Navier-Stokes model problems.
 - ``multilevel``  : mesh hierarchies, structured grid transfers and
                     per-field transfers.
 - ``algebra``     : banded (`StencilMatrix`) and matrix-free constant
                     (`ConstStencilMatrix`) stencil operators, padded-ELL
                     matrices, dense and block operators.
-- ``blocks``      : block-diagonal and block-triangular preconditioners.
+- ``blocks``      : block-diagonal and block-triangular preconditioners,
+                    staggered and blockwise nonlinear operators.
+- ``nonlinear``   : Newton, Picard-to-Newton continuation, the two-float
+                    Newton endgame and a SciPy nonlinear-solver wrapper.
 - ``ops``         : hand-written CUDA kernels for the stencil matvecs
                     (sources under ``csrc/``, built with nvcc at first use)
                     beside their plain PyTorch versions.
@@ -26,7 +29,8 @@ its layout and names so each module has an obvious counterpart:
                     (with a bf16 smoother or cycle), algebraic multigrid,
                     iterative refinement, Schur-complement and wrapper
                     solvers.
-- ``models``      : the Poisson GMG-CG and Stokes entry points.
+- ``models``      : the Poisson GMG-CG, Stokes and Navier-Stokes entry
+                    points.
 - ``convert``     : carries the JAX package's operators (as numpy arrays
                     plus static fields) into this package's objects.
 

@@ -189,3 +189,78 @@ def ell_to_scipy(A: ELLMatrix):
     cols = A.cols.cpu().numpy().reshape(-1)
     rows = np.repeat(np.arange(n), K)
     return sp.coo_matrix((vals, (rows, cols)), shape=A.shape).tocsr()
+
+
+# `kernelize=` / `kernelize_levels=` values of the JAX package, which
+# chooses there between its Pallas kernel and its plain ELL path. Here an
+# ELL leaf on a CUDA tensor always runs the kernel and a refresh always goes
+# through kernelize_system, so the value is checked and otherwise ignored.
+KERNELIZE_VALUES = ("auto", "pallas", "off", "ell")
+
+
+def check_kernelize(value: str) -> None:
+    """Raise on a `kernelize=` / `kernelize_levels=` value the JAX package
+    does not accept."""
+    if value not in KERNELIZE_VALUES:
+        raise ValueError(f"kernelize: unknown value {value!r}, want one of "
+                         f"{list(KERNELIZE_VALUES)}")
+
+
+def kernelize_system(A, old=None):
+    """Values-only refresh of a composite operator's ELL leaves.
+
+    Port of `kernelize_system` (`gridapsolvers_tpu/ops/ell_pallas.py:597`).
+    Walks a (possibly nested) BlockOperator / ColumnStack / RowStack /
+    FieldwiseOperator over ELLMatrix leaves. Here an `ELLMatrix` on a CUDA
+    tensor already is the kernel leaf, so `old=None` (set-up) returns A as
+    it is. With `old`, a previous result of the same structure, every ELL
+    leaf of A comes back as `old`'s leaf with A's `values`: the same `cols`,
+    `row_len` and `group` tensors, nothing rebuilt, so a refresh cannot lose
+    the pattern's row lengths (a leaf whose values did not change comes back
+    as `old`'s own). A new leaf that carries other `cols` tensors than
+    `old`'s must hold the same columns. Any other leaf (a StencilMatrix, a kernel
+    operator) is A's own, as in the JAX package. A structure mismatch
+    (another class, another number of blocks, another values shape, dtype,
+    column count or columns) raises: there is no fallback."""
+    from .block import BlockOperator, ColumnStack, FieldwiseOperator, RowStack
+
+    if old is None:
+        return A
+
+    def mismatch(m, o, why):
+        return ValueError(f"kernelize_system: {type(m).__name__} against "
+                          f"{type(o).__name__}: {why}")
+
+    def conv(m, o):
+        if m is None or o is None:
+            if m is not o:
+                raise mismatch(m, o, "a block is None on one side only")
+            return None
+        if isinstance(m, ELLMatrix):
+            if not isinstance(o, ELLMatrix):
+                raise mismatch(m, o, "not an ELL leaf")
+            if (m.values.shape, m.values.dtype, m.ncols) != (o.values.shape, o.values.dtype,
+                                                             o.ncols):
+                raise mismatch(m, o, f"values {tuple(m.values.shape)} {m.values.dtype} "
+                                     f"x {m.ncols} against {tuple(o.values.shape)} "
+                                     f"{o.values.dtype} x {o.ncols}")
+            if m.cols is not o.cols and not torch.equal(m.cols, o.cols):
+                raise mismatch(m, o, "other columns")
+            return o if m.values is o.values else dataclasses.replace(o, values=m.values)
+        for cls in (FieldwiseOperator, ColumnStack, RowStack):
+            if isinstance(m, cls):
+                if type(o) is not cls or len(o.ops) != len(m.ops):
+                    raise mismatch(m, o, "another stack")
+                return cls(tuple(conv(mm, oo) for mm, oo in zip(m.ops, o.ops)))
+        if isinstance(m, BlockOperator):
+            if not isinstance(o, BlockOperator) or [len(r) for r in m.blocks] != [
+                    len(r) for r in o.blocks]:
+                raise mismatch(m, o, "another block layout")
+            return BlockOperator(tuple(
+                tuple(conv(mm, oo) for mm, oo in zip(mrow, orow))
+                for mrow, orow in zip(m.blocks, o.blocks)))
+        if type(m) is not type(o):
+            raise mismatch(m, o, "another leaf class")
+        return m
+
+    return conv(A, old)

@@ -17,11 +17,14 @@ from .algebra.ell import ELLMatrix
 from .algebra.flat import BlockedKernelOperator
 from .algebra.stencil import ConstStencilMatrix, StencilMatrix
 from .fem.mesh import CartesianMesh
+from .fem.navier_stokes import NavierStokesProblem
 from .fem.poisson import PoissonProblem
 from .fem.stokes import StokesProblem
 from .interfaces.nullspaces import NullSpace
+from .multilevel.multifield import MultiFieldTransfer
 from .multilevel.transfer import StructuredProlongation, StructuredRestriction, TensorTransfer
 from .patches.topology import PatchTopology
+from .patches.transfer import PatchProlongation
 from .utils import resolve_device
 
 
@@ -328,3 +331,94 @@ def tensor_transfer(mats, in_shape, out_shape, mask_in=None, mask_out=None, *, d
         mats=tuple(_tensor(m, device, dtype) for m in mats),
         in_shape=tuple(int(m) for m in in_shape), out_shape=tuple(int(m) for m in out_shape),
         mask_in=_tensor(mask_in, device, dtype), mask_out=_tensor(mask_out, device, dtype))
+
+
+def navier_stokes_problem(fields: dict, *, device=None, dtype=None) -> NavierStokesProblem:
+    """`NavierStokesProblem` from a JAX one's fields, by their names: the
+    mesh and nu as they are, n_u an int, the operators BTs, Bs (sequences),
+    Mp, Mu and res_Bs (a sequence or None) as dicts for `operator`, every
+    other field a numpy array, a (nested) tuple of them, or None. The
+    pattern's row lengths ("row_len", which the JAX package's ELL lacks)
+    default to the Q2 stiffness pattern's row counts on the mesh, the
+    pattern both packages lay the velocity blocks out by."""
+    from .fem import assembly2 as asm
+
+    def vec(v, dt=dtype):
+        if v is None:
+            return None
+        if isinstance(v, (tuple, list)):
+            return tuple(vec(vi, dt) for vi in v)
+        return _tensor(v, device, dt)
+
+    def ops(v):
+        return None if v is None else tuple(operator(o, device=device, dtype=dtype) for o in v)
+
+    mesh = fields["mesh"]
+    row_len = fields.get("row_len")
+    if row_len is None:
+        row_len = np.diff(asm.assemble_bilinear(mesh, 2, "stiffness").indptr)
+    arrays = ("base_vals", "mask_ell", "free_u", "phi", "dphi", "wq", "f", "u_exact", "p_exact",
+              "gd_vals", "lift_g", "res_vals", "gd_res_vals", "row_mask_ell")
+    return NavierStokesProblem(
+        mesh=mesh, nu=float(fields["nu"]), n_u=int(fields["n_u"]),
+        cols_ell=_tensor(np.asarray(fields["cols_ell"], np.int32), device),
+        conn=_tensor(np.asarray(fields["conn"], np.int64), device),
+        slots=_tensor(np.asarray(fields["slots"], np.int32), device),
+        BTs=ops(fields["BTs"]), Bs=ops(fields["Bs"]), res_Bs=ops(fields.get("res_Bs")),
+        Mp=operator(fields["Mp"], device=device, dtype=dtype),
+        Mu=operator(fields["Mu"], device=device, dtype=dtype),
+        row_len=_tensor(np.asarray(row_len, np.int32), device),
+        **{k: vec(fields.get(k)) for k in arrays})
+
+
+def ns_gmg_state(
+    solver,
+    mats: Sequence[dict],
+    lmax: Sequence[float],
+    vanka: Sequence[dict],
+    coarse: dict,
+    P: Sequence[dict],
+    R: Sequence[Sequence[dict]],
+    *,
+    device=None,
+    dtype=None,
+) -> dict:
+    """The state of the port's augmented `ns_velocity_gmg` `solver`
+    (Chebyshev over the materialized Vanka, patch prolongations, no
+    post_smoother) from a JAX state's parts: its level operators (dicts
+    for `operator`), each smoothing level's λmax and materialized M_vanka
+    (a "kblocks" dict for `operator`), the coarse LU ({"lu", "piv"} with
+    JAX's 0-based pivots), each prolongation's parts ({"base": a list of
+    `tensor_transfer` keyword dicts, one a field, "A" and "rhs_op": dicts
+    for `operator`, "dofs", "inv", "uncovered_inv_diag": its Vanka's
+    arrays}) and each restriction's (a list of `tensor_transfer` keyword
+    dicts). The pattern tables of every smoother and patch solver come from
+    the port's own set-up on the carried operators; the numbers (λmax,
+    M_vanka, patch inverses, LU) are the carried ones."""
+    mats = [operator(m, device=device, dtype=dtype) for m in mats]
+    pre = []
+    for sm, A, lm, mv in zip(solver.smoother, mats[:-1], lmax, vanka):
+        mst = sm.M.setup(A)
+        mst["Mv"] = operator(mv, device=device, dtype=dtype)
+        pre.append({"A": A, "M": mst, "lmax": float(lm)})
+    prolongs = []
+    for p_solver, p in zip(solver.prolongations, P):
+        A = operator(p["A"], device=device, dtype=dtype)
+        vs = p_solver.solver
+        prolongs.append(PatchProlongation(
+            MultiFieldTransfer(tuple(tensor_transfer(**t, device=device, dtype=dtype)
+                                     for t in p["base"])),
+            A, vs,
+            vanka_state(vs, A, p["dofs"], p["inv"], p["uncovered_inv_diag"], device=device,
+                        dtype=dtype),
+            rhs_op=operator(p["rhs_op"], device=device, dtype=dtype)))
+    return solver.reduced_state({
+        "mats": mats,
+        "pre": pre,
+        "post": pre,
+        "coarse": {k: _tensor(np.asarray(v, np.int32) + 1, device) if k == "piv"
+                   else _tensor(v, device, dtype) for k, v in coarse.items()},
+        "P": tuple(prolongs),
+        "R": tuple(MultiFieldTransfer(tuple(tensor_transfer(**t, device=device, dtype=dtype)
+                                            for t in r)) for r in R),
+    })

@@ -19,7 +19,14 @@ applications do (bf16 twins of the smoother states, `pre16`/`post16`),
 while residuals, corrections, transfers and the coarse solve stay in the
 working precision. A reduced-precision preconditioner varies slightly
 between applications: pair it with CGSolver(flexible=True) or FGMRES.
-Not ported: `kernelize_levels` (the ELL refresh path, with slice 4).
+
+At `update`, every level operator but the coarsest is refreshed through
+`algebra.ell.kernelize_system`, so each ELL leaf keeps its set-up `cols`,
+`row_len` and `group` and takes the new values only. `kernelize_levels`
+takes the JAX package's values and is otherwise ignored (the refresh
+always runs). The JAX package's `kernel_interpret` (Pallas's interpret
+mode) has no counterpart: on a CPU tensor an ELL leaf runs its plain
+version.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ from ..interfaces import (
     init_history,
     make_stats,
 )
+from ..algebra.ell import check_kernelize, kernelize_system
 from ..utils import pytrees as pt
 from .direct import DenseLUSolver
 from .smoothers import JacobiSolver, RichardsonSmoother
@@ -68,6 +76,8 @@ class GMGSolver(LinearSolver):
                       iterate to the coarser levels for `matrices_fn`
                       (reference gmg_project_solutions!)
     compute_dtype, mixed : reduced-precision cycle (module docstring)
+    kernelize_levels : the JAX package's values, accepted and ignored
+                      (module docstring)
     """
 
     coarse_ops: Optional[tuple] = None
@@ -86,6 +96,7 @@ class GMGSolver(LinearSolver):
     solution_restrictions: Optional[tuple] = None
     compute_dtype: Optional[torch.dtype] = None
     mixed: bool = False
+    kernelize_levels: str = "off"
 
     def __post_init__(self):
         if self.smoother is None:
@@ -96,6 +107,7 @@ class GMGSolver(LinearSolver):
             raise ValueError(f"unknown cycle {self.cycle!r}")
         if self.mode not in ("preconditioner", "solver"):
             raise ValueError(f"unknown mode {self.mode!r}")
+        check_kernelize(self.kernelize_levels)
 
     @property
     def tols(self) -> SolverTolerances:
@@ -105,12 +117,19 @@ class GMGSolver(LinearSolver):
     def num_levels(self) -> int:
         return len(self.prolongations) + 1
 
-    def _level_mats(self, A, x):
+    def _level_mats(self, A, x, old=None):
+        """The level operators at (A, x); given an earlier state's `old`
+        operators, every level but the coarsest is `old`'s with the new
+        values (kernelize_system)."""
         if self.matrices_fn is not None:
-            return list(self.matrices_fn(A, x))
-        if self.coarse_ops is None:
+            mats = list(self.matrices_fn(A, x))
+        elif self.coarse_ops is None:
             raise ValueError("GMGSolver needs coarse_ops or matrices_fn")
-        return [A] + list(self.coarse_ops)
+        else:
+            mats = [A] + list(self.coarse_ops)
+        if old is None:
+            return mats
+        return [kernelize_system(m, o) for m, o in zip(mats[:-1], old[:-1])] + mats[-1:]
 
     def _smoothers(self):
         L = self.num_levels
@@ -183,7 +202,7 @@ class GMGSolver(LinearSolver):
         carry operator-dependent state re-extract at the new level
         operators through their `update` (reference
         update_transfer_operator!)."""
-        mats = self._level_mats(A, x)
+        mats = self._level_mats(A, x, state["mats"])
         xs = self.project_solutions(x)
         pre_states, post_states = self._smoother_states(mats, xs, old=state)
         return self.reduced_state({

@@ -19,8 +19,11 @@ FGMRES additionally stores the preconditioned basis Z[j], so the right
 preconditioner may change between iterations (GMG with a reduced-precision
 smoother, an inner Krylov solve) — reference FGMRESSolvers.jl:58-70.
 `AdaptiveGMRESSolver` doubles the restart length on stagnation (the
-reference's `expand_krylov_caches!`). Not ported: `kernelize`, with the
-ELL refresh surface (slice 4).
+reference's `expand_krylov_caches!`). `update` refreshes the outer
+operator through `algebra.ell.kernelize_system`: its ELL leaves keep their
+set-up pattern tensors and take the new values; the preconditioners get
+the operator as given. `kernelize` takes the JAX package's values and is
+otherwise ignored.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..algebra.ell import check_kernelize, kernelize_system
 from ..interfaces import LinearSolver, SolverTolerances, make_stats
 from ..utils import pytrees as pt
 from .krylov_utils import (
@@ -60,6 +64,10 @@ class GMRESSolver(LinearSolver):
     verbose: bool = False
     name: str = "GMRES"
     depth: int = 0
+    kernelize: str = "off"
+
+    def __post_init__(self):
+        check_kernelize(self.kernelize)
 
     @property
     def tols(self) -> SolverTolerances:
@@ -74,7 +82,7 @@ class GMRESSolver(LinearSolver):
 
     def update(self, state, A, x=None):
         return {
-            "A": A,
+            "A": kernelize_system(A, state["A"]),
             "Pl": self.Pl.update(state["Pl"], A, x) if self.Pl is not None else None,
             "Pr": self.Pr.update(state["Pr"], A, x) if self.Pr is not None else None,
         }

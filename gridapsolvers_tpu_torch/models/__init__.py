@@ -1,2 +1,3 @@
 from .poisson import poisson_const_gmg, solve_poisson, solve_poisson_const  # noqa: F401
 from .stokes import solve_stokes  # noqa: F401
+from .navier_stokes import solve_navier_stokes  # noqa: F401
