@@ -6,9 +6,9 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py [--profile DIR]
 
 It builds the three hand-written kernels from `gridapsolvers_tpu_torch/csrc/`
-(nvcc, sm_90a, all three at once) and drives the port's Poisson,
-Stokes and Navier-Stokes paths through their public entry points, in phases that each
-print one line:
+(nvcc, sm_90a, all three at once) and drives the port's Poisson, Stokes,
+Navier-Stokes, Darcy and elasticity paths through their public entry
+points, in phases that each print one line:
 
   1 device   card name and power limit (nvidia-smi), TF32 off
   2 build    the kernels, with build seconds and ptxas register counts
@@ -52,6 +52,26 @@ print one line:
              set-up and Newton phase, set-up and each Newton step timed by
              step, every refreshed block holding its set-up pattern; then K3
              on every I1 block after its last refresh
+  6J path J  Darcy: J2, solve_darcy in its three branches (RT1 x P1disc at
+             32^2, RT0 plain and grad-div at 64^2; card = CPU); J1, the
+             reference's DarcyGMG at order 2 (RT1 x P1disc, alpha 1e2,
+             FGMRES(20) + upper block-triangular [RT1 GMG with the
+             vertex-star Vanka, Jacobi-CG on -(1/alpha) Mp]) at 512^2 in
+             f64, 6 levels: K2's general kernel on the RT1 diagonal blocks,
+             K3 on the cross blocks, B, Bt and Mp, its launches counted by
+             operand shape, set-up timed by step, host syncs measured; J3,
+             the RT0 H(div) GMG under CG at 512^2 (K3); then each of their
+             operators against its plain version
+  6K path K  linear elasticity: Kb, solve_elasticity at 32^3 and Kc, CG +
+             AMG with rigid-body candidates at 64^2 (card = CPU); Ka,
+             solve_elasticity's configuration at 128^3 in f64, 5 levels
+             (nine K2 launches an operator apply: the box kernel on the
+             27-offset blocks, the general kernel on the others), counted,
+             set-up by step, host syncs measured; then K2 on the nine
+             level-0 blocks against its plain version
+  6L path L  at 32^3, card = CPU: ColoredGaussSeidel (masked, compact, SSOR)
+             under CG, a GMG built from an FESpaceHierarchy, and an
+             L2ProjectionRestriction
   7 K3 ops   K3 on path C's own 128^3 level operators, P and R (f32, bf16
              values, one f64 level) against its plain version
   8 times    per-apply kernel, plain, library and bound times (K1
@@ -60,8 +80,9 @@ print one line:
              general; K3 with each operator's fill, read to row lengths and
              in full; K2 and K3 on path G's 512^2 operators; K3 on path H's
              512^2 operators and K2 on its banded blocks; K3 on path I1's
-             level-0 Jacobian blocks), K3's lanes sweep, and each 128^3 and
-             512^2 solve
+             level-0 Jacobian blocks; K2 and K3 on paths J and K's operators,
+             cold and warm, beside cuSPARSE int32 and int64), K3's lanes
+             sweep, and each 128^3 and 512^2 solve
 
 Each path's 128^3 run starts with every launch count at 0 and is read
 right after, so the counts show that every operator apply went through
@@ -73,8 +94,8 @@ raises, so a failure exits non-zero. The
 line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
 printing any result. `--profile DIR` adds a torch.profiler trace of one
-path C, G and H solve each and of path I1's Newton run (kernel tables in
-DIR, summary lines printed).
+path C, G, H, J1 and Ka solve each and of path I1's Newton run (kernel
+tables in DIR, summary lines printed).
 """
 from __future__ import annotations
 
@@ -82,6 +103,7 @@ import argparse
 import collections
 import concurrent.futures
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -100,7 +122,10 @@ import torch
 # imported before anything is printed: a copy of this script without the
 # package fails here, with no output
 import gridapsolvers_tpu_torch.algebra.flat as flat_mod
+import gridapsolvers_tpu_torch.fem.elasticity as el_mod
+import gridapsolvers_tpu_torch.fem.hdiv as hdiv_mod
 import gridapsolvers_tpu_torch.fem.navier_stokes as ns_mod
+import gridapsolvers_tpu_torch.fem.rt1 as rt1_mod
 import gridapsolvers_tpu_torch.fem.stokes as stokes_mod
 import gridapsolvers_tpu_torch.multilevel.transfer as transfer_mod
 import gridapsolvers_tpu_torch.patches.topology as topology_mod
@@ -120,10 +145,12 @@ from gridapsolvers_tpu_torch.fem import CartesianMesh, poisson_problem
 from gridapsolvers_tpu_torch.fem.assembly import eliminate_dirichlet, laplacian, laplacian_const
 from gridapsolvers_tpu_torch.fem import assembly2 as asm
 from gridapsolvers_tpu_torch.fem.stokes import stokes_problem, velocity_gmg
+from gridapsolvers_tpu_torch.interfaces import rigid_body_modes
 from gridapsolvers_tpu_torch.linear import (
     AMGSolver,
     CGSolver,
     ChebyshevSmoother,
+    ColoredGaussSeidel,
     DenseInverseSolver,
     DenseLUSolver,
     FGMRESSolver,
@@ -133,14 +160,20 @@ from gridapsolvers_tpu_torch.linear import (
     PreconditionedChebyshevSmoother,
     RichardsonSmoother,
 )
-from gridapsolvers_tpu_torch.linear.gmg import gmg_from_hierarchy
+from gridapsolvers_tpu_torch.linear.gmg import GMGSolver, gmg_from_hierarchy
 from gridapsolvers_tpu_torch.models import (
     poisson_const_gmg,
+    solve_darcy,
+    solve_elasticity,
     solve_poisson,
     solve_poisson_const,
     solve_stokes,
 )
-from gridapsolvers_tpu_torch.multilevel import cartesian_hierarchy
+from gridapsolvers_tpu_torch.multilevel import (
+    cartesian_hierarchy,
+    fe_space_hierarchy,
+    setup_projection_restrictions,
+)
 from gridapsolvers_tpu_torch.nonlinear import NewtonSolver
 from gridapsolvers_tpu_torch.nonlinear.refinement import NewtonRefinement
 from gridapsolvers_tpu_torch.ops import banded_stencil as k2
@@ -238,6 +271,50 @@ I_FGMRES_ITS = (1, 12)
 I_UX_CENTRE = -0.2051616931
 I_UX_BOUND = 2 * abs(-0.2051616931 - -0.2051615732)
 NC_I2, LEVELS_I2 = 32, 3
+# path J: Darcy. J1, the reference's DarcyGMG at order 2 (RT1 x P1disc,
+# alpha 1e2; fem/rt1.py darcy_rt1_solver with solve_darcy's rtol and
+# min(maxiter, 40)) at NC_J^2 cells in f64, its RT1 GMG down to 16^2 cells
+# (a 2 x 33 x 32 dense LU; solve_darcy's 3 levels would leave 131 584)
+NC_J = 512
+DARCY_ALPHA = 1e2
+J_RTOL = 1e-10
+J_MAXITER = 40
+# FGMRES iterations: 7 at every size from 32^2 to 256^2 (levels to 16^2)
+# in scripts/darcy_rt1_sweep.py on the CPU, set before the first card run;
+# the band reaches the JAX package's 8 at 8^2 (2 levels)
+J_ITS = (6, 9)
+# the reference's final checks (tests/test_hdiv.py:201-202)
+J_RES_BOUND = 1e-5
+J_VEL_BOUND = 1e-5
+# J2: solve_darcy card = CPU, order 2 at NC_J2^2 on 3 levels and both RT0
+# branches at NC_J2_RT0^2 (they build a dense n_p x n_p identity, as the
+# JAX package does); x card against CPU (atomic scatter sums in the Vanka)
+NC_J2, NC_J2_RT0 = 32, 64
+J2_TOL = 1e-8
+# J3: hdiv_gmg as CG's preconditioner on hdiv_operator (tests/test_hdiv.py:58:
+# rtol 1e-6, <= 20 its) at NC_J3^2, alpha 1e2, levels down to 16^2
+# (5 CG its at every size from 32^2 to 256^2 in scripts/darcy_rt1_sweep.py
+# --j3 on the CPU)
+NC_J3 = 512
+J3_RTOL, J3_MAXITER = 1e-6, 20
+J3_ITS = (4, 7)
+# path K: linear elasticity. Ka, solve_elasticity's configuration (CG rtol
+# 1e-8 <= 60, GMG Chebyshev(4, ratio 40)) in 3D at NC_K^3 cells in f64, 5
+# levels down to 8^3 (a 3 x 9^3 dense LU); its CG band around the 9 its of
+# scripts/elasticity_sweep.py on the CPU at 16^3, 32^3 and 64^3
+NC_K, LEVELS_K = 128, 5
+K_RTOL, K_MAXITER = 1e-8, 60
+K_ITS = (8, 11)
+# Kb: solve_elasticity((NC_KB,)*3, num_levels=3) and Kc: CG + AMG with
+# rigid-body candidates at NC_KC^2 (tests/test_amg.py:45-67), card = CPU,
+# x to K_SMALL_TOL of max|x|
+NC_KB, NC_KC = 32, 64
+K_SMALL_TOL = 1e-8
+# path L: the small modules at NC_L^3, card = CPU (iterations equal, x and
+# the projection to L_TOL of their largest entry)
+NC_L = 32
+L_SSOR_MAXITER = 200
+L_TOL = 1e-8
 KERNELS = ("const_stencil", "banded_stencil", "ell_spmv")
 COUNTS = {"K1": k1.counts, "K2": k2.counts, "K3": k3.counts}
 
@@ -326,6 +403,13 @@ def cg_amg_applies(niter: int, levels: int, degree: int, lanczos: int):
     return k2_count, k3_count
 
 
+def fgmres_applies(n: int, m: int) -> int:
+    """System applies of one FGMRES(m) solve of n iterations from zero
+    (linear/gmres.py): the initial residual, one a restart cycle and one an
+    iteration."""
+    return 1 + -(-n // m) + n
+
+
 def stokes_launches(nc: int, n: int, cg_its: list, levels: int, degree: int, lanczos: int,
                     m: int) -> dict:
     """Launches of one path G run at nc^2 cells, from `stokes_problem` to
@@ -342,7 +426,7 @@ def stokes_launches(nc: int, n: int, cg_its: list, levels: int, degree: int, lan
     pressure CG (its iterations + 1 pressure-mass applies), Bt once and one
     V-cycle, which applies each smoothing level's operator 2k+1 times and
     the coarsest level's once."""
-    applies = 1 + -(-n // m) + n
+    applies = fgmres_applies(n, m)
     nu, npr = (2 * nc + 1) ** 2, (nc + 1) ** 2
     k2_count = {}
     for lev in range(levels):
@@ -653,7 +737,7 @@ def h_launches(n: int, cg_its: list, levels: int, degree: int, power_iters: int,
     times (Chebyshev(k) pre and post, the correction residual) and the
     prolongation's grad-div operator and patch solver once, and on the
     coarsest level the operator once."""
-    a = 1 + -(-n // m) + n
+    a = fgmres_applies(n, m)
     setup = {"Mu": 2 * blocks["Mu"]}
     solve = {"K0": blocks["K0"] * a, "B": blocks["B"] * a, "Bt": blocks["Bt"] * (a + n),
              "Mp": sum(c + 1 for c in cg_its)}
@@ -979,6 +1063,462 @@ def i_launches(per_step, cg_its, levels, degree, power_iters, m, m_blocks) -> di
         newton[f"M{lv}"] = m_blocks[lv] * n * 2 * (degree + 1)
         newton[f"G{lv}"] = 4 * n
     return {"set-up": setup, "Newton": newton}
+
+
+# StepTimes' steps for path J1: the host Kronecker assembly of the RT1
+# blocks (every call: level 0 three times, for the problem, the GMG and the
+# pressure block), the Dirichlet elimination, banding and device copies of
+# each level's velocity operator, the problem's B rows and right-hand side,
+# the vertex-star patch tables, the nested transfers, the Vanka extraction
+# and inversion, and the coarse LU
+J_STEPS = (
+    ("Kronecker assembly", rt1_mod, "rt1_blocks"),
+    ("elimination, banding, device copies", rt1_mod, "rt1_velocity_operator"),
+    ("problem (B, Bt, rhs)", rt1_mod, "darcy_rt1_problem"),
+    ("patch topologies", rt1_mod, "rt1_vertex_patches"),
+    ("transfers", rt1_mod, "rt1_transfer_pair"),
+    ("Vanka extraction and inversion", VankaSolver, "setup"),
+    ("LU", DenseLUSolver, "setup"),
+)
+# ... and for path Ka: each level's banded block assembly (host bands,
+# elimination, device copies), the problem's load, the Chebyshev smoothers'
+# Lanczos λmax and the coarse LU
+K_STEPS = (
+    ("band assembly", el_mod, "elasticity_operator"),
+    ("problem (load)", el_mod, "elasticity_problem"),
+    ("λmax (Lanczos)", ChebyshevSmoother, "setup"),
+    ("LU", DenseLUSolver, "setup"),
+)
+
+
+def setup_j(nc, levels, dtype, device, cg_its=None):
+    """Path J1 through the public API, set up: `darcy_rt1_problem` and
+    `darcy_rt1_solver` (the reference's DarcyGMG at order 2: RT1 x P1disc,
+    alpha 1e2, FGMRES(20) rtol 1e-10 <= 40, upper block-triangular [RT1 GMG
+    of `levels` levels, Richardson(10, 0.2) over the unit-weighted
+    vertex-star Vanka, exact nested transfers; Jacobi-CG rtol 1e-6 <= 20 on
+    -(1/alpha) Mp]) at nc^2 cells. The pressure CG is wrapped to record its
+    iterations (`cg_its`). Returns a dict with the problem, solver, state,
+    the set-up seconds by step and in total."""
+    cg_its = [] if cg_its is None else cg_its
+    with StepTimes(device, J_STEPS) as steps:
+        t0 = time.perf_counter()
+        prob = rt1_mod.darcy_rt1_problem((nc, nc), alpha=DARCY_ALPHA, dtype=dtype,
+                                         device=device)
+        solver = rt1_mod.darcy_rt1_solver((nc, nc), num_levels=levels, alpha=DARCY_ALPHA,
+                                          rtol=J_RTOL, maxiter=J_MAXITER, dtype=dtype,
+                                          device=device)
+        P = solver.Pr
+        solver = dataclasses.replace(solver, Pr=dataclasses.replace(
+            P, solvers=(P.solvers[0], Recorded(P.solvers[1], cg_its))))
+        state = solver.setup(prob.A)
+        if torch.device(device).type == "cuda":
+            fence()
+        total = time.perf_counter() - t0
+    secs = dict(steps.secs)
+    secs["other"] = total - sum(secs.values())
+    return {"prob": prob, "solver": solver, "state": state, "cg_its": cg_its,
+            "levels": levels, "secs": secs, "setup_s": total}
+
+
+def solve_j(run) -> dict:
+    """Solve a set-up path J1 (or Ka) run: adds its solution, stats and
+    solve seconds."""
+    t0 = time.perf_counter()
+    run["x"], run["stats"] = run["solver"].solve(run["state"], run["prob"].b)
+    if pt.tree_leaves(run["x"])[0].device.type == "cuda":
+        fence()
+    run["solve_s"] = time.perf_counter() - t0
+    return run
+
+
+def j_launches(nc: int, n: int, cg_its: list, levels: int, niter: int, m: int,
+               noffs: list) -> dict:
+    """Launches of one path J1 run at nc^2 cells, from `darcy_rt1_problem`
+    to the end of the solve (fem/rt1.py, linear/gmres.py,
+    blocks/block_solvers.py, linear/gmg.py, linear/smoothers.py,
+    patches/vanka.py), by kernel and operand shape: K2 on the two diagonal
+    velocity blocks of each level ((noffs[l][c], *grid of component c)), K3
+    on the two cross blocks of each level ((N_l, N_l), N_l = (2n_l+1) 2n_l),
+    B ((3nc^2, N_0), two), Bt ((N_0, 3nc^2), two) and -(1/alpha) Mp. A
+    velocity apply is one launch a block. The problem applies the system
+    once (its consistent right-hand side); the set-up none (patch
+    extraction, diagonals and the LU read values); FGMRES applies the
+    system `fgmres_applies` times; each of its n preconditioner applies
+    runs the pressure CG (its iterations + 1 Mp applies), Bt once and one
+    V-cycle, which applies each smoothing level's operator 2 niter + 1
+    times (Richardson(niter) pre and post over the Vanka, whose applies
+    launch no kernel, and the correction residual) and the coarsest
+    level's once."""
+    a = 1 + fgmres_applies(n, m)
+    N0 = (2 * nc + 1) * 2 * nc
+    npr = 3 * nc * nc
+    k2_count, k3_count = collections.Counter(), collections.Counter()
+    for lev in range(levels):
+        n_l = nc >> lev
+        per = n if lev == levels - 1 else n * (2 * niter + 1)
+        per += a if lev == 0 else 0
+        for c, grid in enumerate(((2 * n_l + 1, 2 * n_l), (2 * n_l, 2 * n_l + 1))):
+            k2_count[(noffs[lev][c],) + grid] += per
+        N_l = (2 * n_l + 1) * 2 * n_l
+        k3_count[(N_l, N_l)] += 2 * per
+    k3_count[(npr, N0)] += 2 * a
+    k3_count[(N0, npr)] += 2 * (a + n)
+    k3_count[(npr, npr)] += sum(c + 1 for c in cg_its)
+    return {"K2": dict(k2_count), "K3": dict(k3_count)}
+
+
+def setup_k(nc, levels, dtype, device):
+    """Path Ka through the public API, set up: `solve_elasticity`'s
+    configuration (`elasticity_problem`: clamped on the x0 face, mu = lambda
+    = 1, unit downward body force; CG rtol 1e-8 <= 60 + `elasticity_gmg`:
+    Chebyshev(4, ratio 40), structured Q1 transfers per component, dense LU
+    on the coarsest level) in 3D at nc^3 cells with `levels` levels.
+    Returns a dict as setup_j's."""
+    with StepTimes(device, K_STEPS) as steps:
+        t0 = time.perf_counter()
+        prob = el_mod.elasticity_problem((nc,) * 3, dtype=dtype, device=device)
+        gmg = el_mod.elasticity_gmg((nc,) * 3, num_levels=levels, dtype=dtype, device=device)
+        solver = CGSolver(Pl=gmg, rtol=K_RTOL, maxiter=K_MAXITER)
+        state = solver.setup(prob.A)
+        if torch.device(device).type == "cuda":
+            fence()
+        total = time.perf_counter() - t0
+    secs = dict(steps.secs)
+    secs["other"] = total - sum(secs.values())
+    return {"prob": prob, "solver": solver, "state": state, "levels": levels, "secs": secs,
+            "setup_s": total}
+
+
+def k_launches(nc: int, n: int, levels: int, degree: int, lanczos: int, noffs: list) -> dict:
+    """K2 launches of one path Ka run at nc^3 cells (fem/elasticity.py,
+    linear/cg.py, linear/gmg.py, linear/smoothers.py) by operand shape
+    ((offsets, *vertex grid)): an operator apply launches K2 once a block
+    (nine), `noffs[l]` the offset counts of level l's blocks. Set-up: one
+    Lanczos run on every smoothing level (pre and post share it). Solve:
+    `cg_gmg_level_applies` by level."""
+    per = cg_gmg_level_applies(n, levels, degree)
+    out = collections.Counter()
+    for lev in range(levels):
+        g = (nc >> lev) + 1
+        applies = per[lev] + (lanczos if lev < levels - 1 else 0)
+        for s in noffs[lev]:
+            out[(s, g, g, g)] += applies
+    return dict(out)
+
+
+def k2_bound_ms(A: StencilMatrix, x: torch.Tensor) -> float:
+    """Bytes K2 must move (every band read once, x and y once each) over
+    the card's memory rate."""
+    return ((len(A.offsets) * A.bands.element_size() + 2 * x.element_size()) * A.n
+            / HBM_BYTES_PER_S * 1e3)
+
+
+def paths_jkl(dev, opts, card, elapsed, launches, check_k2, check_ell, vec, lines) -> dict:
+    """Paths J, K and L on `dev` (main's phases 6J, 6K, 6L): each counted
+    run's launches go into `launches`, each kernel check through main's
+    `check_k2` / `check_ell` (with `vec` and `lines`). Returns what phase 8
+    times and reports: the timed operators (`jk_ops`), each one's launches
+    in its run, the counted runs' launches by operand shape and the J1 and
+    Ka solve times."""
+    f32, f64 = torch.float32, torch.float64
+    lanczos = ChebyshevSmoother().lanczos_iters
+    # ---- 6J path J: Darcy ------------------------------------------------
+    # J2 (card = CPU): solve_darcy in its three branches; then J1, the
+    # reference's DarcyGMG at order 2 at NC_J^2 in f64 (counted, set-up by
+    # step, host syncs measured); then J3, the RT0 H(div) GMG under CG at
+    # NC_J3^2
+    def flat(x):
+        return torch.cat([t.reshape(-1) for t in pt.tree_leaves(x)])
+
+    small = []
+    for tag, nc_, kw in (("RT1", NC_J2, dict(order=2, num_levels=3)),
+                         ("RT0", NC_J2_RT0, {}),
+                         ("RT0 grad-div", NC_J2_RT0, dict(graddiv_alpha=DARCY_ALPHA))):
+        (xc_, sc_, ic_), (xh_, sh_, ih_) = (solve_darcy((nc_, nc_), device=d, **kw)
+                                            for d in (dev, "cpu"))
+        assert sc_.niter == sh_.niter and int(sc_.flag) == int(sh_.flag) and sc_.converged(), (
+            tag, sc_.niter, sh_.niter, sc_.flag, sh_.flag)
+        e = relerr(flat(xc_).cpu(), flat(xh_))
+        assert e <= J2_TOL, f"J2 {tag}: card against CPU x {e:.2e}"
+        err = "velocity_error" if "order" in kw else "pressure_error"
+        small.append(f"{tag} {nc_}^2 ({kw}) {sc_.niter} = {sh_.niter} its, flag {sc_.flag}, "
+                     f"x rel diff {e:.1e}, residual {ic_['residual']:.2e}, {err} "
+                     f"{ic_[err]:.3e}")
+    del xc_, xh_, ic_, ih_
+    levels_j = int(math.log2(NC_J // 16)) + 1
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    with SyncCount() as syncs:
+        run_j = setup_j(NC_J, levels_j, f64, dev)
+        syncs_j = [syncs.read()]
+        solve_j(run_j)
+        syncs_j.append(syncs.read() - syncs_j[0])
+    launches["J1"] = read_counts(k2_box=False)
+    shapes_j = {"K2": dict(k2.counts.shapes), "K3": dict(k3.counts.shapes)}
+    mem_j = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+    prob_j, x_j, st_j = run_j["prob"], run_j["x"], run_j["stats"]
+    gst_j = run_j["state"]["Pr"]["states"][0]
+    noffs_j = [[len(m_.blocks[c][c].offsets) for c in (0, 1)] for m_ in gst_j["mats"]]
+    want_j = j_launches(NC_J, st_j.niter, run_j["cg_its"], levels_j, 10, 20, noffs_j)
+    assert shapes_j == want_j, (shapes_j, want_j)
+    assert launches["J1"]["K1"] == 0
+    hist_j = st_j.residuals.cpu().numpy()
+    assert st_j.converged() and J_ITS[0] <= st_j.niter <= J_ITS[1], (st_j.niter, st_j.flag)
+    leaves = pt.tree_leaves(x_j)
+    n_uj = (2 * NC_J + 1) * 2 * NC_J
+    assert [t.shape[0] for t in leaves] == [n_uj, n_uj, 3 * NC_J ** 2]
+    assert all(t.dtype == f64 and bool(torch.isfinite(t).all()) for t in leaves)
+    res_j, vel_j = prob_j.residual_norm(x_j), prob_j.velocity_error(x_j[0])
+    rel_j = res_j / float(pt.norm(prob_j.b))
+    assert res_j < J_RES_BOUND and vel_j < J_VEL_BOUND, (res_j, vel_j)
+    assert rel_j <= 2 * J_RTOL, rel_j
+    t_solve_j = median_ms(lambda: run_j["solver"].solve(run_j["state"], prob_j.b), runs=3,
+                          warmup=0, spin=False)
+    print(f"[6J path J] Darcy: J2 card = CPU: " + "; ".join(small)
+          + f"; J1 RT1 x P1disc {NC_J}^2/{levels_j} levels f64 (alpha {DARCY_ALPHA:g}, "
+          f"FGMRES(20) rtol {J_RTOL:g} <= {J_MAXITER}, upper block-triangular [RT1 GMG, "
+          f"Richardson(10, 0.2) over the vertex-star Vanka; Jacobi-CG on -(1/alpha) Mp]; "
+          f"{2 * n_uj + 3 * NC_J ** 2} unknowns; counted): {st_j.niter} its (band {J_ITS}), flag "
+          f"{st_j.flag}, residuals " + " ".join(f"{v:.3e}" for v in hist_j[: st_j.niter + 1])
+          + f"; residual_norm {res_j:.3e}, velocity_error {vel_j:.3e} (< {J_RES_BOUND:g}, "
+          f"{J_VEL_BOUND:g}), true relative residual {rel_j:.3e}; inner CG its "
+          f"{run_j['cg_its']}; set-up {run_j['setup_s']:.2f} s by step: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in run_j["secs"].items())
+          + f"; solve {run_j['solve_s']:.3f} s (median of 3 more on the same set-up "
+          f"{t_solve_j / 1e3:.3f} s); host syncs measured: set-up {syncs_j[0]}, solve "
+          f"{syncs_j[1]}; peak device memory {mem_j:.2f} GiB over what earlier paths hold; "
+          f"launches by shape equal to j_launches: K2 "
+          + ", ".join(f"{k} {v}" for k, v in sorted(shapes_j["K2"].items()))
+          + "; K3 " + ", ".join(f"{k} {v}" for k, v in sorted(shapes_j["K3"].items()))
+          + f"; K1 0, plain 0 {elapsed()}", flush=True)
+    if opts.profile is not None:
+        summary = profile_solve(lambda: run_j["solver"].solve(run_j["state"], prob_j.b),
+                                opts.profile, "path_J1")
+        print(f"[profile] path J1 solve, {card}: {summary} {elapsed()}", flush=True)
+    # the J1 operators that phase 8 times and that are held against their
+    # plain versions below: level 0's diagonal velocity blocks (K2), its
+    # cross blocks, B, Bt and -(1/alpha) Mp (K3)
+    K0_j = gst_j["mats"][0]
+    jk_ops = {f"J K2 u0 {K0_j.blocks[0][0].grid_shape}": K0_j.blocks[0][0],
+              f"J K2 u1 {K0_j.blocks[1][1].grid_shape}": K0_j.blocks[1][1],
+              "J K3 G01": K0_j.blocks[0][1], "J K3 G10": K0_j.blocks[1][0],
+              "J K3 B0": prob_j.A.block(1, 0).ops[0], "J K3 Bt0": prob_j.A.block(0, 1).ops[0],
+              "J K3 Mp": run_j["state"]["Pr"]["diag_ops"][1]}
+    # each block's launches: its shape's count over the blocks of that shape
+    # (G01 and G10, B0 and B1, Bt0 and Bt1 share theirs)
+    j_block_launches = {
+        key: shapes_j["K2" if " K2 " in key else "K3"][
+            (len(A_.offsets),) + A_.grid_shape if isinstance(A_, StencilMatrix) else A_.shape]
+        // (1 if " K2 " in key or key.endswith("Mp") else 2)
+        for key, A_ in jk_ops.items()}
+    del run_j, x_j, st_j, gst_j, leaves, K0_j
+    torch.cuda.empty_cache()
+    # J3: the RT0 H(div) GMG (Richardson(2, 0.4) over the vertex patches)
+    # as CG's preconditioner on hdiv_operator, x_true seeded
+    gmg3, A3, free3 = hdiv_mod.hdiv_gmg((NC_J3, NC_J3), levels_j, alpha=DARCY_ALPHA,
+                                        device=dev)
+    rng3 = np.random.default_rng(1)
+    x_true3 = tuple(torch.from_numpy(rng3.normal(size=int(f_.shape[0]))).to(dev) * f_
+                    for f_ in free3)
+    b3 = A3.matvec(x_true3)
+    cg3 = CGSolver(Pl=gmg3, rtol=J3_RTOL, maxiter=J3_MAXITER)
+    reset_counts()
+    st3 = cg3.setup(A3)
+    x3, s3 = cg3.solve(st3, b3)
+    launches["J3"] = read_counts(k2_box=False)
+    shapes_j3 = dict(k3.counts.shapes)
+    # CG applies the operator once at the start and once an iteration; each
+    # of the n + 1 V-cycles Richardson(2) pre and post and the correction
+    # residual on every smoothing level, once on the coarsest: four K3
+    # blocks an apply, each of level l's (N_l, N_l)
+    want_j3 = {}
+    for lev in range(levels_j):
+        n_l = NC_J3 >> lev
+        per = (s3.niter + 1) * (1 if lev == levels_j - 1 else 5) + (s3.niter + 1 if lev == 0
+                                                                    else 0)
+        want_j3[((n_l + 1) * n_l, (n_l + 1) * n_l)] = 4 * per
+    assert shapes_j3 == want_j3 and launches["J3"]["K2"] == 0, (shapes_j3, want_j3)
+    assert s3.converged() and J3_ITS[0] <= s3.niter <= J3_ITS[1], (s3.niter, s3.flag)
+    err3 = float(pt.norm(pt.sub(x3, x_true3)) / pt.norm(x_true3))
+    jk_ops.update({"J3 K3 RT0 (0,0)": A3.blocks[0][0], "J3 K3 RT0 (0,1)": A3.blocks[0][1]})
+    n3 = (NC_J3 + 1) * NC_J3
+    j_block_launches.update({key: want_j3[(n3, n3)] // 4 for key in jk_ops if "J3" in key})
+    print(f"[6J path J3] RT0 H(div) GMG-CG {NC_J3}^2/{levels_j} levels f64 (alpha "
+          f"{DARCY_ALPHA:g}, rtol {J3_RTOL:g} <= {J3_MAXITER}): {s3.niter} its (band {J3_ITS}), "
+          f"flag {s3.flag}, relative error {err3:.2e}; K3 launches {launches['J3']['K3']} by "
+          f"shape equal to the formula ({', '.join(f'{k} {v}' for k, v in sorted(want_j3.items()))})"
+          f"; K1 0, K2 0, plain 0 {elapsed()}", flush=True)
+    # J's operators against their plain versions (f64 as the path runs
+    # them, and f32)
+    for key, A64 in jk_ops.items():
+        for dt, tol in ((f64, F64_TOL), (f32, F32_TOL)):
+            A = A64.astype(dt)
+            if isinstance(A, StencilMatrix):
+                check_k2(f"[{key}]{str(dt)[6:]}", A, vec(A.n, dt), tol, False)
+            else:
+                check_ell(f"K3[{key} {A.nrows}x{A.ncols} K={A.row_width}]{str(dt)[6:]}", A,
+                          vec(A.ncols, dt), tol)
+    print(f"[6J kernels] {len(lines)} cases on path J's operators within f32 {F32_TOL:.0e} / "
+          f"f64 {F64_TOL:.0e}: " + ", ".join(lines) + f" {elapsed()}", flush=True)
+    lines.clear()
+    del gmg3, st3, x3, x_true3, b3, A3
+    torch.cuda.empty_cache()
+
+    # ---- 6K path K: linear elasticity ------------------------------------
+    # Kb (card = CPU): solve_elasticity at NC_KB^3; Kc (card = CPU): CG +
+    # AMG with rigid-body near-nullspace candidates at NC_KC^2; Ka:
+    # solve_elasticity's configuration at NC_K^3 in f64, counted
+    (xc_, sc_, ic_), (xh_, sh_, ih_) = (solve_elasticity((NC_KB,) * 3, num_levels=3, device=d)
+                                        for d in (dev, "cpu"))
+    assert sc_.niter == sh_.niter and int(sc_.flag) == int(sh_.flag) == 2, (sc_.niter, sh_.niter)
+    ekb = relerr(flat(xc_).cpu(), flat(xh_))
+    assert ekb <= K_SMALL_TOL, f"Kb: card against CPU x {ekb:.2e}"
+    small = [f"Kb solve_elasticity(({NC_KB},)*3, num_levels=3) {sc_.niter} = {sh_.niter} its, "
+             f"flag {sc_.flag}, x rel diff {ekb:.1e}, residual {ic_['residual']:.2e}"]
+    kc = {}
+    for d in (dev, "cpu"):
+        prob_c = el_mod.elasticity_problem((NC_KC, NC_KC), device=d)
+        coords = prob_c.mesh.vertex_coords()
+        ns = rigid_body_modes(torch.from_numpy(coords))
+        n_ = coords.shape[0]
+        cand = np.stack([np.concatenate([q.numpy().reshape(n_, 2)[:, 0],
+                                         q.numpy().reshape(n_, 2)[:, 1]]) for q in ns.vectors],
+                        axis=1)
+        cg_c = CGSolver(Pl=AMGSolver(coarse_size=80, near_nullspace=cand), rtol=1e-8,
+                        maxiter=80)
+        reset_counts()
+        st_c = cg_c.setup(prob_c.A)
+        xk_, sk_ = cg_c.solve(st_c, prob_c.b)
+        kc[d] = (xk_, sk_, prob_c.residual_norm(xk_))
+        if d == dev:
+            launches["Kc"] = read_counts(k2_box=False)
+            amg_c = len(st_c["Pl"]["mats"])
+    assert kc[dev][1].niter == kc["cpu"][1].niter and kc[dev][1].converged(), (
+        kc[dev][1].niter, kc["cpu"][1].niter)
+    ekc = relerr(flat(kc[dev][0]).cpu(), flat(kc["cpu"][0]))
+    assert ekc <= K_SMALL_TOL and launches["Kc"]["K3"] > 0, (ekc, launches["Kc"])
+    small.append(f"Kc AMG + rigid-body candidates {NC_KC}^2 ({amg_c} levels) {kc[dev][1].niter} "
+                 f"= {kc['cpu'][1].niter} its, x rel diff {ekc:.1e}, residual {kc[dev][2]:.2e}, "
+                 f"K3 launches {launches['Kc']['K3']}")
+    del kc, xc_, xh_, ic_, ih_, prob_c, st_c
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    with SyncCount() as syncs:
+        run_k = setup_k(NC_K, LEVELS_K, f64, dev)
+        syncs_k = [syncs.read()]
+        solve_j(run_k)
+        syncs_k.append(syncs.read() - syncs_k[0])
+    assert not any(c.plain for c in COUNTS.values()), {k: c.plain for k, c in COUNTS.items()}
+    launches["Ka"] = {k: c.kernel for k, c in COUNTS.items()}
+    shapes_k = dict(k2.counts.shapes)
+    box_k = k2.counts.box
+    mem_k = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+    prob_k, x_k, st_k = run_k["prob"], run_k["x"], run_k["stats"]
+    gst_k = run_k["state"]["Pl"]
+    noffs_k = [[len(b.offsets) for row in m_.blocks for b in row] for m_ in gst_k["mats"]]
+    want_k = k_launches(NC_K, st_k.niter, LEVELS_K, 4, lanczos, noffs_k)
+    assert shapes_k == want_k, (shapes_k, want_k)
+    assert launches["Ka"]["K1"] == launches["Ka"]["K3"] == 0
+    # the 27-offset blocks take the box kernel, the others (fewer offsets)
+    # the general kernel
+    assert box_k == sum(c for s_, c in shapes_k.items() if s_[0] == 27), (box_k, shapes_k)
+    hist_k = st_k.residuals.cpu().numpy()
+    assert int(st_k.flag) == 2 and K_ITS[0] <= st_k.niter <= K_ITS[1], (st_k.niter, st_k.flag)
+    leaves = pt.tree_leaves(x_k)
+    assert [t.shape[0] for t in leaves] == [(NC_K + 1) ** 3] * 3
+    assert all(t.dtype == f64 and bool(torch.isfinite(t).all()) for t in leaves)
+    res_k = prob_k.residual_norm(x_k)
+    rel_k = res_k / float(pt.norm(prob_k.b))
+    uz_mean = float(x_k[2].mean())
+    assert rel_k <= 2 * K_RTOL and uz_mean < 0, (rel_k, uz_mean)
+    t_solve_k = median_ms(lambda: run_k["solver"].solve(run_k["state"], prob_k.b), runs=3,
+                          warmup=0, spin=False)
+    print(f"[6K path K] elasticity: " + "; ".join(small)
+          + f"; Ka {NC_K}^3/{LEVELS_K} levels f64 (clamped x0, mu = lambda = 1, unit downward "
+          f"load; CG rtol {K_RTOL:g} <= {K_MAXITER} + GMG Chebyshev(4, ratio 40); "
+          f"{3 * (NC_K + 1) ** 3} unknowns; counted): {st_k.niter} its (band {K_ITS}), flag "
+          f"{st_k.flag}, residuals " + " ".join(f"{v:.3e}" for v in hist_k[: st_k.niter + 1])
+          + f"; residual_norm {res_k:.3e} (relative {rel_k:.3e}), mean u_z {uz_mean:.4e}; "
+          f"set-up {run_k['setup_s']:.2f} s by step: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in run_k["secs"].items())
+          + f"; solve {run_k['solve_s']:.3f} s (median of 3 more {t_solve_k / 1e3:.3f} s); "
+          f"host syncs measured: set-up {syncs_k[0]}, solve {syncs_k[1]}; peak device memory "
+          f"{mem_k:.2f} GiB over what earlier paths hold; K2 launches by shape equal to "
+          f"k_launches: " + ", ".join(f"{k} {v}" for k, v in sorted(shapes_k.items()))
+          + f" ({box_k} on the box kernel: the 27-offset blocks); K1 0, K3 0, plain 0 "
+          f"{elapsed()}", flush=True)
+    if opts.profile is not None:
+        summary = profile_solve(lambda: run_k["solver"].solve(run_k["state"], prob_k.b),
+                                opts.profile, "path_Ka")
+        print(f"[profile] path Ka solve, {card}: {summary} {elapsed()}", flush=True)
+    # K2 on the nine level-0 blocks against its plain version (f64, f32);
+    # phase 8 times the (0,0) block (27 offsets, box kernel) and the (0,2)
+    # block (23 offsets, general kernel)
+    K0_k = prob_k.A
+    for i_, row in enumerate(K0_k.blocks):
+        for j_, A64 in enumerate(row):
+            for dt, tol in ((f64, F64_TOL), (f32, F32_TOL)):
+                A = A64.astype(dt)
+                check_k2(f"[Ka ({i_},{j_}) {len(A.offsets)} bands]{str(dt)[6:]}", A,
+                         vec(A.n, dt), tol, len(A.offsets) == 27)
+            del A
+    print(f"[6K kernels] {len(lines)} cases on path Ka's {NC_K + 1}^3 blocks within f32 "
+          f"{F32_TOL:.0e} / f64 {F64_TOL:.0e}: " + ", ".join(lines) + f" {elapsed()}",
+          flush=True)
+    lines.clear()
+    for i_, j_ in ((0, 0), (0, 2)):
+        A_ = K0_k.blocks[i_][j_]
+        key = f"K K2 ({i_},{j_}) {len(A_.offsets)} bands"
+        jk_ops[key] = A_
+        j_block_launches[key] = sum(c for s_, c in shapes_k.items()
+                                    if s_ == (len(A_.offsets),) + A_.grid_shape) // (
+            sum(1 for row in K0_k.blocks for b in row if len(b.offsets) == len(A_.offsets)))
+    del run_k, x_k, st_k, gst_k, leaves, K0_k, prob_k
+    torch.cuda.empty_cache()
+
+    # ---- 6L path L: the small modules (card = CPU) ------------------------
+    small = []
+    for d in (dev, "cpu"):
+        prob_l = poisson_problem((NC_L,) * 3, device=d)
+        part = []
+        for tag, pl, kw in (
+                ("GS masked", ColoredGaussSeidel(niter=1), dict(rtol=1e-8, flexible=True)),
+                ("GS compact", ColoredGaussSeidel(niter=1, impl="compact"),
+                 dict(rtol=1e-8, flexible=True)),
+                ("SSOR 1.3", ColoredGaussSeidel(niter=1, sweep="symmetric", omega=1.3),
+                 dict(rtol=1e-9, maxiter=L_SSOR_MAXITER))):
+            cg_l = CGSolver(Pl=pl, **kw)
+            xl_, sl_ = cg_l.solve(cg_l.setup(prob_l.A), prob_l.b)
+            assert sl_.converged(), (tag, d, sl_.niter, sl_.flag)
+            part.append((tag, sl_.niter, flat(xl_).cpu()))
+        sh_l = fe_space_hierarchy(cartesian_hierarchy((NC_L,) * 3, 3), order=1)
+        mats_l = sh_l.compute_matrices("stiffness", device=d)
+        P_l, R_l = sh_l.transfer_operators(device=d)
+        gmg_l = GMGSolver(coarse_ops=tuple(mats_l[1:]), prolongations=tuple(P_l),
+                          restrictions=tuple(R_l), smoother=ChebyshevSmoother(degree=3))
+        cg_l = CGSolver(Pl=gmg_l, rtol=1e-8, maxiter=30)
+        xl_, sl_ = cg_l.solve(cg_l.setup(mats_l[0]), prob_l.b)
+        assert sl_.converged(), (d, sl_.niter)
+        part.append(("FESpaceHierarchy GMG-CG", sl_.niter, flat(xl_).cpu()))
+        R2 = setup_projection_restrictions(cartesian_hierarchy((NC_L,) * 3, 2), device=d)[0]
+        uf = torch.from_numpy(np.random.default_rng(2).normal(size=(NC_L + 1) ** 3)).to(d)
+        part.append(("L2ProjectionRestriction", 0, R2.matvec(uf).cpu()))
+        small.append(part)
+    out_l = []
+    for (tag, n_c, x_c), (_, n_h, x_h) in zip(*small):
+        e = relerr(x_c, x_h)
+        assert n_c == n_h and e <= L_TOL, (tag, n_c, n_h, e)
+        out_l.append(f"{tag} {n_c} = {n_h} its, rel diff {e:.1e}")
+    print(f"[6L path L] {NC_L}^3 card = CPU: " + "; ".join(out_l) + f" {elapsed()}", flush=True)
+    del small, prob_l, mats_l, gmg_l, cg_l, xl_
+    torch.cuda.empty_cache()
+
+    return {"jk_ops": jk_ops, "j_block_launches": j_block_launches, "shapes_j": shapes_j,
+            "shapes_j3": shapes_j3, "shapes_k": shapes_k, "t_solve_j": t_solve_j,
+            "t_solve_k": t_solve_k}
 
 
 def ell_csr(A: ELLMatrix, index=torch.int32) -> torch.Tensor:
@@ -2048,7 +2588,7 @@ def main() -> None:
         # the host syncs the code's reads predict: the Newton residual norm,
         # FGMRES's first residual, one a restart cycle and one an iteration,
         # each inner CG's first residual and one an iteration
-        s_["syncs_formula"] = (1 + 1 + -(-s_["its"] // run_i["m"]) + s_["its"]
+        s_["syncs_formula"] = (1 + fgmres_applies(s_["its"], run_i["m"])
                                + sum(c + 1 for c in cgs))
         steps_txt.append(
             f"step {k + 1}: residual {s_['residual']:.3e}, FGMRES {s_['its']} its, solve "
@@ -2121,6 +2661,9 @@ def main() -> None:
     i_shapes = {f"{r_}x{c_}": n_ for (r_, c_), n_ in sorted(roles.shapes.items())}
     del run_i, prob_i, x_i, st_i, state_i, gst_i, i_blocks, roles, J0, leaves
     torch.cuda.empty_cache()
+
+    # ---- 6J, 6K, 6L paths J, K and L: Darcy, elasticity, the small modules
+    jk = paths_jkl(dev, opts, card, elapsed, launches, check_k2, check_ell, vec, lines)
 
     # ---- 7 K3 on path C's own operators ---------------------------------
     ops = ([(f"level {i}", m) for i, m in enumerate(amg["mats"]) if i > 0]
@@ -2361,6 +2904,40 @@ def main() -> None:
             i_keys[key] = (f"{A.nrows}x{A.ncols}, {real} entries, mean row "
                            f"{real / A.nrows:.2f}, K={A.row_width}, G={A.group}", e)
             del csr
+    # paths J and K's operators in f64, as the paths run them: K2 on J1's
+    # RT1 diagonal blocks (general kernel) and Ka's (0,0) (27 offsets, box
+    # kernel) and (0,2) (23 offsets, general kernel) blocks, K3 on J1's
+    # cross blocks, B, Bt and -(1/alpha) Mp and on J3's RT0 blocks: warm and
+    # with L2 flushed before each launch (cold), the plain version, cuSPARSE
+    # CSR with int32 and int64 indices on the same real entries (which also
+    # cross-checks y) and the bytes bound
+    jk_keys = {}
+    jk_ops, j_block_launches = jk["jk_ops"], jk["j_block_launches"]
+    for key, A in jk_ops.items():
+        xj = vec(A.shape[1], f64)
+        if isinstance(A, StencilMatrix):
+            args = (A.bands, A.offsets, A.grid_shape, A._periodic(), xj)
+            fn = functools.partial(k2.banded_stencil_cuda, *args)
+            plain = functools.partial(k2.banded_stencil_plain, *args)
+            E = flat_mod.flat_kernel_operator(A).kblocks[0][0]
+            bound[key] = k2_bound_ms(A, xj)
+            desc = f"{len(A.offsets)} bands on {A.grid_shape}"
+        else:
+            fn = functools.partial(A.matvec, xj)
+            plain = functools.partial(k3.ell_spmv_plain, A.values, A.cols, xj, A.row_len)
+            E = A
+            bound[key] = ell_bound_ms(A, xj)
+            desc = f"{A.nrows}x{A.ncols}, K={A.row_width}, G={A.group}"
+        t[key] = median_ms(fn)
+        t[f"{key} cold"] = median_ms(fn, before=cold)
+        t[f"{key} plain"] = median_ms(plain)
+        csr, csr64 = ell_csr(E), ell_csr(E, torch.int64)
+        t[f"{key} library"] = median_ms(lambda: torch.mv(csr, xj))
+        t[f"{key} library int64"] = median_ms(lambda: torch.mv(csr64, xj))
+        e = relerr(fn(), torch.mv(csr, xj))
+        assert e <= F64_TOL, f"{key}: kernel vs cuSPARSE {e:.2e}"
+        jk_keys[key] = (f"{desc}, {ell_fill(E)[0]} entries", e)
+        del csr, csr64, E
     # K3's lanes a row, read to row lengths and in full
     sweep = []
     for tag, A in k3_ops.items():
@@ -2455,6 +3032,15 @@ def main() -> None:
                       f"cuSPARSE int32 {t[key + ' library']:.4f}, bound {bound[key]:.4f}, "
                       f"kernel vs cuSPARSE y {e:.1e}" for key, (desc, e) in i_keys.items())
           + f" {elapsed()}", flush=True)
+    print(f"[8 J K] {card} | paths J1 ({NC_J}^2), J3 ({NC_J3}^2) and Ka ({NC_K}^3) operators, "
+          f"f64, median of {TIMING_RUNS} (CUDA events), ms per apply: "
+          + "; ".join(f"{key} ({desc}) kernel {t[key]:.4f} (cold {t[key + ' cold']:.4f}), "
+                      f"plain {t[key + ' plain']:.4f}, cuSPARSE int32 {t[key + ' library']:.4f} "
+                      f"(int64 {t[key + ' library int64']:.4f}), bound {bound[key]:.4f}, "
+                      f"launches {j_block_launches[key]}, kernel vs cuSPARSE y {e:.1e}"
+                      for key, (desc, e) in jk_keys.items())
+          + f" | solve only, median of 3: J1 {jk['t_solve_j']:.2f} ms, Ka {jk['t_solve_k']:.2f} ms "
+          f"{elapsed()}", flush=True)
     if opts.profile is not None:
         summary = profile_solve(lambda: cgC.solve(stateC, probC.b), opts.profile, "path_c")
         print(f"[profile] path C solve, {card}: {summary} {elapsed()}", flush=True)
@@ -2520,6 +3106,30 @@ def main() -> None:
         key: h_entry(key, sum(c for g, c in shapes_h2["K2"].items()
                               if g == (25,) + h2_ops[key[3:]].grid_shape))
         for key in h_keys if key.startswith("H2 ")}
+    # paths J and K: each timed operator's launches in its run, and the
+    # kernel's launches by operand shape in each counted run
+
+    def jk_entry(key):
+        return {"ms": r4(t[key]), "cold_ms": r4(t[f"{key} cold"]),
+                "plain_ms": r4(t[f"{key} plain"]), "bound_ms": r4(bound[key]),
+                "library_ms": r4(t[f"{key} library"]),
+                "library_int64_ms": r4(t[f"{key} library int64"]),
+                "launches": j_block_launches[key]}
+
+    def by_shape(counts):
+        return {"x".join(map(str, s_)): n_ for s_, n_ in sorted(counts.items())}
+
+    k2_row["darcy"] = {"J1 " + key.split(" K2 ")[1]: jk_entry(key) for key in jk_keys
+                       if key.startswith("J K2")}
+    k2_row["darcy"]["J1 launches_by_shape"] = by_shape(jk["shapes_j"]["K2"])
+    k2_row["elasticity"] = {"Ka " + key.split(" K2 ")[1]: jk_entry(key) for key in jk_keys
+                            if key.startswith("K K2")}
+    k2_row["elasticity"]["Ka launches_by_shape"] = by_shape(jk["shapes_k"])
+    k3_row["darcy"] = {("J3 " if key.startswith("J3") else "J1 ") + key.split(" K3 ")[1]:
+                       jk_entry(key) for key in jk_keys if " K3 " in key}
+    k3_row["darcy"]["J1 launches_by_shape"] = by_shape(jk["shapes_j"]["K3"])
+    k3_row["darcy"]["J3 launches_by_shape"] = by_shape(jk["shapes_j3"])
+    k3_row["elasticity"] = {"Kc launches": launches["Kc"]["K3"]}
     k1_row = row("K1", "K1 const_stencil", "gridapsolvers_tpu_torch/csrc/const_stencil.cu",
                  "gridapsolvers_tpu/ops/stencil_pallas.py:61", "K1")
     k1_row.update({

@@ -11,9 +11,11 @@ its layout and names so each module has an obvious counterpart:
                     resolution.
 - ``fem``         : structured Cartesian meshes, Q1 and general
                     tensor-element assembly (host NumPy/scipy), the Poisson,
-                    Taylor-Hood Stokes and Navier-Stokes model problems.
-- ``multilevel``  : mesh hierarchies, structured grid transfers and
-                    per-field transfers.
+                    Taylor-Hood Stokes, Navier-Stokes, RT0/RT1 Darcy, H(div)
+                    and linear elasticity model problems.
+- ``multilevel``  : mesh hierarchies, structured grid transfers, per-field
+                    transfers, FE-space hierarchies and L2 / cell-local
+                    projections.
 - ``algebra``     : banded (`StencilMatrix`) and matrix-free constant
                     (`ConstStencilMatrix`) stencil operators, padded-ELL
                     matrices, dense and block operators.
@@ -25,12 +27,12 @@ its layout and names so each module has an obvious counterpart:
                     (sources under ``csrc/``, built with nvcc at first use)
                     beside their plain PyTorch versions.
 - ``linear``      : CG, GMRES/FGMRES, MINRES, Jacobi/Richardson/Chebyshev
-                    smoothers, dense direct solvers, geometric multigrid
+                    and multicolor Gauss-Seidel smoothers, dense direct solvers, geometric multigrid
                     (with a bf16 smoother or cycle), algebraic multigrid,
                     iterative refinement, Schur-complement and wrapper
                     solvers.
-- ``models``      : the Poisson GMG-CG, Stokes and Navier-Stokes entry
-                    points.
+- ``models``      : the Poisson GMG-CG, Stokes, Navier-Stokes, Darcy and
+                    elasticity entry points.
 - ``convert``     : carries the JAX package's operators (as numpy arrays
                     plus static fields) into this package's objects.
 

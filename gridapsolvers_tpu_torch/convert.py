@@ -16,8 +16,12 @@ from .algebra.block import BlockOperator, ColumnStack, FieldwiseOperator, RowSta
 from .algebra.ell import ELLMatrix
 from .algebra.flat import BlockedKernelOperator
 from .algebra.stencil import ConstStencilMatrix, StencilMatrix
+from .fem.darcy import DarcyProblem
+from .fem.elasticity import ElasticityProblem
+from .fem.hdiv import RTProlongation, RTRestriction
 from .fem.mesh import CartesianMesh
 from .fem.navier_stokes import NavierStokesProblem
+from .fem.rt1 import DarcyRT1Problem, RT1Prolongation, RT1Restriction
 from .fem.poisson import PoissonProblem
 from .fem.stokes import StokesProblem
 from .interfaces.nullspaces import NullSpace
@@ -33,6 +37,15 @@ def _tensor(a, device, dtype=None) -> Optional[torch.Tensor]:
         return None
     t = torch.from_numpy(np.array(a))  # a copy: JAX hands out read-only views
     return t.to(device=resolve_device(device), dtype=dtype or t.dtype)
+
+
+def _vec(v, device, dtype=None):
+    """A numpy array, or a (nested) tuple of them, as tensors; None stays."""
+    if v is None:
+        return None
+    if isinstance(v, (tuple, list)):
+        return tuple(_vec(vi, device, dtype) for vi in v)
+    return _tensor(v, device, dtype)
 
 
 def _offsets(offsets) -> Tuple[Tuple[int, ...], ...]:
@@ -175,10 +188,11 @@ def gmg_state(
     """The state of the port's `GMGSolver` `solver` (Chebyshev smoothers,
     no post_smoother) from a JAX GMG state's parts in full precision: its
     level operators (dicts for `operator`), each smoothing level's
-    Chebyshev state {"inv_diag", "lmax", "lmin"}, the coarse solver's
+    Chebyshev state {"inv_diag" (an array, or a tuple of them for a block
+    operator), "lmax", "lmin"}, the coarse solver's
     arrays ({"inv"}, or {"lu", "piv"} with JAX's 0-based pivots, made
-    LAPACK's 1-based here), and the transfers (keyword dicts for
-    `prolongation` / `restriction`). The post smoothers share the pre
+    LAPACK's 1-based here), and the transfers (dicts for `transfer`; a
+    restriction's keyword dict without "mode" is residual mode). The post smoothers share the pre
     smoothers' states, as the port's set-up makes them. Then `solver`'s
     own reduced-precision step runs: its `compute_dtype` twins (`mixed`)
     or the whole state cast down, so a JAX state's bf16 copies come out
@@ -186,7 +200,7 @@ def gmg_state(
     them."""
     mats = [operator(m, device=device, dtype=dtype) for m in mats]
     pre = [
-        {"A": A, "inv_diag": _tensor(s["inv_diag"], device, dtype),
+        {"A": A, "inv_diag": _vec(s["inv_diag"], device, dtype),
          "lmax": float(s["lmax"]), "lmin": float(s["lmin"])}
         for A, s in zip(mats[:-1], smoothers)
     ]
@@ -199,8 +213,9 @@ def gmg_state(
         "pre": pre,
         "post": pre,
         "coarse": coarse_state,
-        "P": tuple(prolongation(**p, device=device, dtype=dtype) for p in P),
-        "R": tuple(restriction(**r, device=device, dtype=dtype) for r in R),
+        "P": tuple(transfer(p, device=device, dtype=dtype) for p in P),
+        "R": tuple(transfer({"mode": "residual", **r} if "fine_shape" in r else r,
+                            device=device, dtype=dtype) for r in R),
     })
 
 
@@ -279,11 +294,7 @@ def stokes_problem(
     u_exact a tuple or None, p_exact and const_p arrays or None) and its
     static fields."""
     def vec(v):
-        if v is None:
-            return None
-        if isinstance(v, (tuple, list)):
-            return tuple(vec(vi) for vi in v)
-        return _tensor(v, device, dtype)
+        return _vec(v, device, dtype)
 
     return StokesProblem(
         mesh=mesh,
@@ -344,11 +355,7 @@ def navier_stokes_problem(fields: dict, *, device=None, dtype=None) -> NavierSto
     from .fem import assembly2 as asm
 
     def vec(v, dt=dtype):
-        if v is None:
-            return None
-        if isinstance(v, (tuple, list)):
-            return tuple(vec(vi, dt) for vi in v)
-        return _tensor(v, device, dt)
+        return _vec(v, device, dt)
 
     def ops(v):
         return None if v is None else tuple(operator(o, device=device, dtype=dtype) for o in v)
@@ -422,3 +429,96 @@ def ns_gmg_state(
         "R": tuple(MultiFieldTransfer(tuple(tensor_transfer(**t, device=device, dtype=dtype)
                                             for t in r)) for r in R),
     })
+
+
+def transfer(spec: dict, *, device=None, dtype=None):
+    """A grid transfer from a JAX one's fields: {"fields": [specs]} (a
+    `MultiFieldTransfer`), {"rt0": "P" or "R", "coarse_cells", "mask_fine",
+    "mask_coarse"} (RT0 face transfers; masks per component or None),
+    {"rt1": "P" or "R", "mats" (per component, per axis), "coarse_cells",
+    "mask_fine", "mask_coarse"}, or the keyword dict of `prolongation`
+    (no "mode") or `restriction` (with "mode")."""
+    if "fields" in spec:
+        return MultiFieldTransfer(tuple(transfer(f, device=device, dtype=dtype)
+                                        for f in spec["fields"]))
+    cells = tuple(int(n) for n in spec.get("coarse_cells", ()))
+    mf = _vec(spec.get("mask_fine"), device, dtype)
+    mc = _vec(spec.get("mask_coarse"), device, dtype)
+    if "rt0" in spec:
+        return RTProlongation(cells, mf) if spec["rt0"] == "P" else RTRestriction(cells, mc, mf)
+    if "rt1" in spec:
+        mats = tuple(tuple(_tensor(m, device, dtype) for m in per) for per in spec["mats"])
+        if spec["rt1"] == "P":
+            return RT1Prolongation(mats, cells, mf)
+        return RT1Restriction(mats, cells, mc, mf)
+    if "mode" in spec:
+        return restriction(**spec, device=device, dtype=dtype)
+    return prolongation(**spec, device=device, dtype=dtype)
+
+
+def patch_gmg_state(
+    solver,
+    mats: Sequence[dict],
+    vanka: Sequence[dict],
+    coarse: dict,
+    P: Sequence[dict],
+    R: Sequence[dict],
+    *,
+    device=None,
+    dtype=None,
+) -> dict:
+    """The state of the port's `GMGSolver` `solver` whose smoothers are
+    `RichardsonSmoother`s over a `VankaSolver` (`hdiv_gmg`, `rt1_gmg`), no
+    post_smoother, from a JAX GMG state's parts: its level operators (dicts
+    for `operator`), each smoothing level's Vanka arrays ({"dofs", "inv",
+    "uncovered_inv_diag"}), the coarse LU ({"lu", "piv"}, JAX's 0-based
+    pivots) and the transfers (dicts for `transfer`). The pattern tables
+    of every Vanka come from the port's own set-up on the carried
+    operators; the patch inverses and the LU are the carried ones."""
+    mats = [operator(m, device=device, dtype=dtype) for m in mats]
+    pre = []
+    for sm, A, v in zip(solver._smoothers()[0], mats[:-1], vanka):
+        pre.append({"A": A, "M": vanka_state(sm.M, A, v["dofs"], v["inv"],
+                                              v["uncovered_inv_diag"], device=device,
+                                              dtype=dtype)})
+    return {
+        "mats": mats,
+        "pre": pre,
+        "post": pre,
+        "coarse": {k: _tensor(np.asarray(v, np.int32) + 1, device) if k == "piv"
+                   else _tensor(v, device, dtype) for k, v in coarse.items()},
+        "P": tuple(transfer(p, device=device, dtype=dtype) for p in P),
+        "R": tuple(transfer(r, device=device, dtype=dtype) for r in R),
+    }
+
+
+def darcy_problem(ncells, A: dict, b, u_exact, p_exact, cell_volume: float, *, device=None,
+                  dtype=None) -> DarcyProblem:
+    """`DarcyProblem` (RT0) from the JAX one's operator (a dict for
+    `operator`), its vectors as numpy arrays (b as ((b_ux, b_uy), b_p))
+    and its static fields."""
+    return DarcyProblem(ncells=tuple(int(n) for n in ncells),
+                        A=operator(A, device=device, dtype=dtype), b=_vec(b, device, dtype),
+                        u_exact=_vec(u_exact, device, dtype),
+                        p_exact=_vec(p_exact, device, dtype), cell_volume=float(cell_volume))
+
+
+def darcy_rt1_problem(ncells, A: dict, b, x_exact, Mp: dict, alpha: float, *, device=None,
+                      dtype=None) -> DarcyRT1Problem:
+    """`DarcyRT1Problem` from the JAX one's operators (dicts for
+    `operator`), its vectors as numpy arrays (b and x_exact as
+    ((u_0, .., u_d), p)) and alpha."""
+    return DarcyRT1Problem(ncells=tuple(int(n) for n in ncells),
+                           A=operator(A, device=device, dtype=dtype), b=_vec(b, device, dtype),
+                           x_exact=_vec(x_exact, device, dtype),
+                           Mp=operator(Mp, device=device, dtype=dtype), alpha=float(alpha))
+
+
+def elasticity_problem(mesh: CartesianMesh, A: dict, b, dirichlet_mask, mu: float, lam: float,
+                       *, device=None, dtype=None) -> ElasticityProblem:
+    """`ElasticityProblem` from the JAX one's operator (a dict for
+    `operator`), b (a tuple of numpy arrays) and its static fields."""
+    return ElasticityProblem(mesh=mesh, A=operator(A, device=device, dtype=dtype),
+                             b=_vec(b, device, dtype),
+                             dirichlet_mask=np.asarray(dirichlet_mask, dtype=bool),
+                             mu=float(mu), lam=float(lam))

@@ -9,13 +9,16 @@ from .direct import (  # noqa: F401
 )
 from .smoothers import (  # noqa: F401
     ChebyshevSmoother,
+    ColoredGaussSeidel,
     IdentitySolver,
     JacobiSolver,
     PreconditionedChebyshevSmoother,
     RichardsonLinearSolver,
     RichardsonSmoother,
+    SymGaussSeidelSmoother,
     estimate_dinv_a_lmax,
     gershgorin_dinv_a_lmax,
+    stencil_coloring,
 )
 from .gmg import GMGSolver, gmg_from_hierarchy  # noqa: F401
 from .refinement import IterativeRefinementSolver, comp_residual  # noqa: F401

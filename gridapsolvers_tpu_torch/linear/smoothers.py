@@ -19,16 +19,21 @@ the host (`_chebyshev_coefficients`).
 - PreconditionedChebyshevSmoother : Chebyshev acceleration of an SPD
                             preconditioner M (the Vanka patch smoothers),
                             λmax of M·A by power iteration through M.
-
-Not ported yet: `ColoredGaussSeidel` (alias `SymGaussSeidelSmoother`).
+- ColoredGaussSeidel      : multicolor Gauss-Seidel / SOR (alias
+                            SymGaussSeidelSmoother), parity colours on a
+                            StencilMatrix, greedy colours (`native`) on an
+                            ELLMatrix.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..interfaces import (
     LinearSolver,
@@ -351,3 +356,162 @@ def _chebyshev_coefficients(lmax: float, lmin: float, degree: int, dtype):
         steps.append((r(r(2.0 * rho_new) / delta), r(rho_new * rho)))
         rho = rho_new
     return r(1.0 / theta), tuple(steps)
+
+
+def _greedy_coloring(cols: np.ndarray, n: int) -> np.ndarray:
+    """Greedy graph coloring of the sparsity graph (host-side, native C++
+    with NumPy twin). cols: (n, K) ELL column indices."""
+    from ..native import greedy_color
+
+    return greedy_color(np.asarray(cols))
+
+
+def stencil_coloring(grid_shape) -> np.ndarray:
+    """2^d coloring by coordinate parity — exact GS decoupling for any
+    3^d-point stencil on a structured grid."""
+    grids = np.meshgrid(*[np.arange(m) % 2 for m in grid_shape], indexing="ij")
+    color = np.zeros(grid_shape, dtype=np.int32)
+    for k, g in enumerate(grids):
+        color += g << k
+    return color.reshape(-1)
+
+
+def _cshift_to(xq: torch.Tensor, t, out_shape) -> torch.Tensor:
+    """out[k] = xq[k + t] on compact subgrids (zero outside) with an
+    explicit output shape — parity subgrids of an odd-sized axis differ in
+    length by one."""
+    out = xq
+    for k in range(out.ndim):
+        n_in, n_out = out.shape[k], out_shape[k]
+        start = max(t[k], 0)
+        stop = min(n_in, n_out + t[k])
+        length = max(stop - start, 0)
+        left = max(-t[k], 0)
+        out = out.narrow(k, start, length)
+        pads = [0] * (2 * out.ndim)
+        j = 2 * (out.ndim - 1 - k)  # F.pad lists the last axis first
+        pads[j], pads[j + 1] = left, n_out - left - length
+        out = F.pad(out, pads)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ColoredGaussSeidel(Smoother):
+    """Multicolor Gauss-Seidel: one sweep = sequential pass over colors,
+    simultaneous update within each color (exact GS for a coloring of the
+    adjacency graph). sweep ∈ ('forward','backward','symmetric').
+
+    Replacement for the reference's processor-block SymGaussSeidelSmoother
+    (SymGaussSeidelSmoothers.jl:147-208). impl='masked' applies a full
+    matvec per color (the operator's kernel, K2 or K3, on a vector that is
+    zero off the color); impl='compact' works on the parity-compact
+    subgrids of a non-periodic 3^d-point StencilMatrix, reading each band
+    once per color pass (plain tensor operations), and falls back to
+    'masked' for any other operator, as the JAX package does."""
+
+    niter: int = 1
+    sweep: str = "symmetric"
+    # SOR relaxation factor (omega=1 -> plain GS; symmetric sweep with
+    # omega != 1 gives SSOR, the reference's IterativeSolversExt IS_SSOR)
+    omega: float = 1.0
+    impl: str = "masked"
+
+    def setup(self, A, x=None):
+        from ..algebra.stencil import StencilMatrix
+
+        d = A.diag()
+        if isinstance(A, StencilMatrix):
+            colors = stencil_coloring(A.grid_shape)
+        else:
+            colors = _greedy_coloring(A.cols.cpu().numpy(), A.shape[0])
+        ncolors = int(colors.max()) + 1
+        masks = torch.from_numpy(np.stack([(colors == c) for c in range(ncolors)])).to(
+            device=d.device, dtype=d.dtype)
+        return {"A": A, "inv_diag": 1.0 / d, "masks": masks}
+
+    def update(self, state, A, x=None):
+        return {"A": A, "inv_diag": 1.0 / A.diag(), "masks": state["masks"]}
+
+    def _color_order(self, ncolors):
+        fwd = list(range(ncolors))
+        if self.sweep == "forward":
+            return fwd
+        if self.sweep == "backward":
+            return fwd[::-1]
+        return fwd + fwd[::-1]
+
+    def smooth(self, state, x, r):
+        from ..algebra.stencil import StencilMatrix
+
+        A = state["A"]
+        if (
+            self.impl == "compact"
+            and isinstance(A, StencilMatrix)
+            and not any(A._periodic())
+            and all(all(abs(o) <= 1 for o in off) for off in A.offsets)
+        ):
+            return self._smooth_stencil_fast(state, x, r)
+        return self._smooth_generic(state, x, r)
+
+    def _smooth_generic(self, state, x, r):
+        A = state["A"]
+        inv_diag, masks = state["inv_diag"], state["masks"]
+        for _ in range(self.niter):
+            for c in self._color_order(masks.shape[0]):
+                dx = self.omega * masks[c] * inv_diag * r
+                x = x + dx
+                r = r - A.matvec(dx)
+        return x, r
+
+    def _smooth_stencil_fast(self, state, x, r):
+        """Banded fast path: one sweep costs ~1 matvec of band traffic
+        instead of 2^d. Works on the parity-compact subgrids: per color
+        visit, the current residual at that color's rows is recomputed
+        lazily from the accumulated compact deltas, so each band is read
+        only at the visited color's rows. One trailing matvec yields the
+        final residual. The same updates in the same order as the generic
+        path, exact for any 3^d-point stencil on an open grid."""
+        A = state["A"]
+        gs = A.grid_shape
+        d = len(gs)
+        rg = r.reshape(gs)
+        xg = x.reshape(gs)
+        invd = state["inv_diag"].reshape(gs)
+        colors = list(itertools.product((0, 1), repeat=d))
+
+        # stencil_coloring packs dim-k parity into bit k
+        def parity(c):
+            return tuple((c >> k) & 1 for k in range(d))
+
+        subs = {p: tuple(slice(p[k], None, 2) for k in range(d)) for p in colors}
+        DX = {p: torch.zeros_like(rg[subs[p]]) for p in colors}
+        r0c = {p: rg[subs[p]] for p in colors}
+        seq = [parity(c) for _ in range(self.niter) for c in self._color_order(2 ** d)]
+        for p in seq:
+            rp = r0c[p]
+            for s, off in enumerate(A.offsets):
+                q = tuple((p[k] + off[k]) % 2 for k in range(d))
+                t = tuple((p[k] + off[k]) // 2 for k in range(d))
+                contrib = _cshift_to(DX[q], t, rp.shape)
+                rp = rp - A.bands[(s,) + subs[p]] * contrib
+            DX[p] = DX[p] + self.omega * invd[subs[p]] * rp
+        dxg = torch.zeros_like(rg)
+        for p in colors:
+            dxg[subs[p]] = DX[p]
+        x_new = (xg + dxg).reshape(x.shape)
+        r_new = r - A.matvec(dxg.reshape(-1)).reshape(r.shape)
+        return x_new, r_new
+
+    def apply(self, state, r):
+        x, _ = self.smooth(state, torch.zeros_like(r), r)
+        return x
+
+    def solve(self, state, b, x0=None):
+        x = pt.zeros_like(b) if x0 is None else x0
+        r = b - state["A"].matvec(x)
+        x, _ = self.smooth(state, x, r)
+        return x, None
+
+
+# Reference naming alias
+SymGaussSeidelSmoother = ColoredGaussSeidel

@@ -17,3 +17,19 @@ from .transfer import (  # noqa: F401
     setup_transfer_operators,
 )
 from .multifield import MultiFieldTransfer  # noqa: F401
+from .projection_transfer import (  # noqa: F401
+    L2ProjectionRestriction,
+    setup_projection_restrictions,
+)
+from .local_projection import (  # noqa: F401
+    LocalProjectionMap,
+    SpaceProjectionMap,
+)
+from .spaces import (  # noqa: F401
+    FESpace,
+    FESpaceHierarchy,
+    MultiFieldFESpace,
+    TriangulationHierarchy,
+    fe_space_hierarchy,
+    multifield_hierarchy,
+)

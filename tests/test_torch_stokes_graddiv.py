@@ -213,17 +213,16 @@ def test_graddiv_3d():
 
 
 def test_not_yet_ported_pieces_raise():
-    """What slice 3b leaves for later: the colored Gauss-Seidel smoothers,
-    the FE-space projection transfers and the distributed operators."""
-    import gridapsolvers_tpu_torch.linear as TL
+    """What the port leaves for later: the GenEO Schwarz solvers, the
+    H(curl) and MHD applications, AMR and the distributed operators. (The
+    colored Gauss-Seidel smoothers and the FE-space projection transfers,
+    once checked here, are ported: tests/test_torch_multilevel_spaces.py.)"""
     from gridapsolvers_tpu_torch.algebra import to_scipy
 
-    for name in ("ColoredGaussSeidel", "SymGaussSeidelSmoother"):
-        with pytest.raises(AttributeError):
-            getattr(TL, name)
-    for mod in ("spaces", "local_projection", "projection_transfer"):
+    for mod in ("linear.schwarz", "fem.hcurl", "fem.mhd", "multilevel.adaptive",
+                "multilevel.forest"):
         with pytest.raises(ModuleNotFoundError):
-            __import__(f"gridapsolvers_tpu_torch.multilevel.{mod}")
+            __import__(f"gridapsolvers_tpu_torch.{mod}")
 
     class DistELLMatrix:
         pass
