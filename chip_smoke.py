@@ -7,8 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds the three hand-written kernels from `gridapsolvers_tpu_torch/csrc/`
 (nvcc, sm_90a, all three at once) and drives the port's Poisson, Stokes,
-Navier-Stokes, Darcy and elasticity paths through their public entry
-points, in phases that each print one line:
+Navier-Stokes, Darcy, elasticity, GenEO Schwarz, H(curl) and MHD paths
+through their public entry points, in phases that each print one line:
 
   1 device   card name and power limit (nvidia-smi), TF32 off
   2 build    the kernels, with build seconds and ptxas register counts
@@ -72,6 +72,23 @@ points, in phases that each print one line:
   6L path L  at 32^3, card = CPU: ColoredGaussSeidel (masked, compact, SSOR)
              under CG, a GMG built from an FESpaceHierarchy, and an
              L2ProjectionRestriction
+  6M path M  two-level Schwarz with GenEO (the reference's HPDDM analog):
+             M2 at 32 x 8 cells (one-level, two-level with and without
+             Neumann matrices, the nested coarse solver; card = CPU); M1,
+             -div(kappa grad u) with high-contrast channels on 2048 x 64
+             cells in f64, 64 slabs, nev 4, the batched Cholesky/eigh pencil
+             on the card, CG (K2 on the 9-band operator), counted by operand
+             shape, set-up by step, beside the one-level solver
+  6N path N  H(curl) curl-curl + AMS: N2 at 16^2 and 8^3, alpha 1 and 100
+             (card = CPU); N1, make_ams at 64^3 in f64 under CG, then
+             AMSSolver.update on 2A and a second solve (K3 on the edge
+             blocks, G, Gt, Pi_c, Pi_ct and four AMG hierarchies), counted
+             by operand shape
+  6O path O  3D MHD multifield GMG: O2 at 8^3 (V, W, F cycles, gamma 1
+             and 10; card = CPU); O1, mhd_gmg at 96^3 with 5 levels in f64
+             under FGMRES(30) (K3 on the 6 x 6 blocks of every level),
+             counted by operand shape; then each path's operators against
+             their plain versions
   7 K3 ops   K3 on path C's own 128^3 level operators, P and R (f32, bf16
              values, one f64 level) against its plain version
   8 times    per-apply kernel, plain, library and bound times (K1
@@ -80,8 +97,8 @@ points, in phases that each print one line:
              general; K3 with each operator's fill, read to row lengths and
              in full; K2 and K3 on path G's 512^2 operators; K3 on path H's
              512^2 operators and K2 on its banded blocks; K3 on path I1's
-             level-0 Jacobian blocks; K2 and K3 on paths J and K's operators,
-             cold and warm, beside cuSPARSE int32 and int64), K3's lanes
+             level-0 Jacobian blocks; K2 and K3 on paths J, K, M, N and O's
+             operators, cold and warm, beside cuSPARSE int32 and int64), K3's lanes
              sweep, and each 128^3 and 512^2 solve
 
 Each path's 128^3 run starts with every launch count at 0 and is read
@@ -111,6 +128,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 import weakref
 from pathlib import Path
@@ -122,12 +140,17 @@ import torch
 # imported before anything is printed: a copy of this script without the
 # package fails here, with no output
 import gridapsolvers_tpu_torch.algebra.flat as flat_mod
+import gridapsolvers_tpu_torch.fem.assembly as asm_q1
 import gridapsolvers_tpu_torch.fem.elasticity as el_mod
+import gridapsolvers_tpu_torch.fem.hcurl as hcurl_mod
 import gridapsolvers_tpu_torch.fem.hdiv as hdiv_mod
+import gridapsolvers_tpu_torch.fem.mhd as mhd_mod
 import gridapsolvers_tpu_torch.fem.navier_stokes as ns_mod
 import gridapsolvers_tpu_torch.fem.rt1 as rt1_mod
 import gridapsolvers_tpu_torch.fem.stokes as stokes_mod
+import gridapsolvers_tpu_torch.linear.schwarz as schwarz_mod
 import gridapsolvers_tpu_torch.multilevel.transfer as transfer_mod
+import gridapsolvers_tpu_torch.patches.smoothers as psm_mod
 import gridapsolvers_tpu_torch.patches.topology as topology_mod
 from gridapsolvers_tpu_torch import native
 from gridapsolvers_tpu_torch.algebra import ell_from_scipy, stencil_from_scipy, to_scipy
@@ -315,6 +338,46 @@ K_SMALL_TOL = 1e-8
 NC_L = 32
 L_SSOR_MAXITER = 200
 L_TOL = 1e-8
+# path M: two-level Schwarz with GenEO (the reference's HPDDM/PCHPDDM
+# analog). M1: -div(kappa grad u) on NC_M square cells ((0, 32) x (0, 1))
+# in f64, boundary eliminated (on the unit square the cells would be 32:1
+# and the two-level iterations grow with the slab count: 48, 73, 121 at
+# 8, 16, 32 slabs, scripts/schwarz_sweep.py at (0, 1)^2), kappa = 1e4 in
+# the cell columns M_CHANNELS of the second axis
+# (tests/test_schwarz.py's channels scaled from 16 to 64 cells; they cross
+# every slab interface), else 1; NS_M slabs of overlap 2, nev NEV_M, local
+# Neumann matrices (true GenEO); CG rtol 1e-8 <= 200; its band from
+# scripts/schwarz_sweep.py on the CPU; the one-level solver beside it on
+# the same operator must take more iterations. M2 (card = CPU): the test
+# size, M2_NC cells, kappa 1e4 in cell column 2, ns in (2, 4), nev 2
+NC_M, NS_M, NEV_M = (2048, 64), 64, 4
+M_CHANNELS = ((16, 24), (40, 48))
+M_RTOL, M_MAXITER = 1e-8, 200
+M_ITS = (15, 26)
+M2_NC = (32, 8)
+M2_TOL = 1e-8
+# path N: H(curl) curl-curl with AMS. N1: make_ams((NC_N,)*3, alpha 1,
+# beta 1) in f64 (vector correction on: Chebyshev(3) on the edges, AMG on
+# GᵀAG and on each Π_cᵀAΠ_c), CG rtol 1e-8 <= 100, then AMSSolver.update
+# on A scaled by 2 and a second solve; its band from scripts/ams_sweep.py.
+# Its size is bounded by the four host AMG set-ups (scipy), as in the JAX
+# package. N2 (card = CPU): 16^2 and 8^3, alpha in (1, 100), its equal and
+# <= 40 (tests/test_hcurl.py)
+NC_N = 64
+N_RTOL, N_MAXITER = 1e-8, 100
+N_ITS = (50, 90)
+N2_TOL = 1e-6
+N2_SINGULAR_TOL = 1e-2
+# path O: 3D MHD multifield GMG. O1: mhd_gmg((NC_O,)*3, LEVELS_O, gamma 1,
+# maxiter 1) in f64 under FGMRES(30) rtol 1e-6 <= 40 (tests/test_multifield.py:
+# 36-45), Richardson(2, 0.3) over the 15-dof vertex Vanka, dense LU at 6^3;
+# its band from scripts/mhd_sweep.py; residual_norm < O_RES_REL * ||b||.
+# O2 (card = CPU): 8^3, 2 levels, the V, W and F cycles and gamma in (1, 10)
+NC_O, LEVELS_O = 96, 5
+O_RTOL, O_MAXITER = 1e-6, 40
+O_ITS = (5, 9)
+O_RES_REL = 1e-5
+O2_TOL = 1e-8
 KERNELS = ("const_stencil", "banded_stencil", "ell_spmv")
 COUNTS = {"K1": k1.counts, "K2": k2.counts, "K3": k3.counts}
 
@@ -1207,6 +1270,194 @@ def k_launches(nc: int, n: int, levels: int, degree: int, lanczos: int, noffs: l
     return dict(out)
 
 
+M_STEPS = (
+    ("host assembly", asm_q1, "laplacian_var"),
+    ("Neumann matrices (host)", schwarz_mod, "slab_neumann_matrices"),
+    ("patch extraction", psm_mod, "extract_patch_matrices_ell"),
+    ("batched inverses", torch.linalg, "inv"),
+    ("Cholesky", torch.linalg, "cholesky"),
+    ("triangular solves", torch.linalg, "solve_triangular"),
+    ("eigh", torch.linalg, "eigh"),
+    ("coarse operator A0 = ZᵀAZ, LU", schwarz_mod.TwoLevelSchwarzSolver, "_refresh_coarse"),
+)
+N_STEPS = (
+    ("host assembly (curl-curl system)", hcurl_mod, "curlcurl_system"),
+    ("ELL conversion", hcurl_mod, "curlcurl_operator"),
+    ("AMS projections (host)", hcurl_mod.AMSSolver, "setup"),
+    ("AMS re-projections (host)", hcurl_mod.AMSSolver, "update"),
+    ("AMG set-ups (host)", AMGSolver, "setup"),
+    ("AMG updates (host)", AMGSolver, "update"),
+    ("λmax (Lanczos)", ChebyshevSmoother, "setup"),
+    ("dense inverses", DenseInverseSolver, "setup"),
+)
+O_STEPS = (
+    ("Kronecker assembly", mhd_mod, "mhd_system"),
+    ("patch topologies", mhd_mod, "mhd_vertex_patches"),
+    ("Vanka extraction and inversion", VankaSolver, "setup"),
+    ("LU", DenseLUSolver, "setup"),
+)
+
+
+def m_kappa(nc) -> np.ndarray:
+    """Path M1's coefficient: 1e4 in the M_CHANNELS cell columns (scaled to
+    nc[1] cells from 64), else 1."""
+    kap = np.ones(nc)
+    for lo, hi in M_CHANNELS:
+        kap[:, lo * nc[1] // 64: hi * nc[1] // 64] = 1e4
+    return kap
+
+
+def setup_m(nc, ns, nev, dtype, device, kappa=None, level="two", neumann=True,
+            coarse_solver=None, maxiter=M_MAXITER, domain=None):
+    """Path M through the public API, set up: -div(kappa grad u) by
+    `laplacian_var` on `domain` (None: (0, nc[0]/nc[1]) x (0, 1), square
+    cells) with the boundary eliminated, a seeded rhs zero on the boundary,
+    and CG rtol 1e-8 preconditioned by `TwoLevelSchwarzSolver` (`level`
+    "two": ns slabs of overlap 2, nev, the `slab_neumann_matrices` if
+    `neumann`) or by the one-level `SchwarzLinearSolver` ("one"). Returns
+    a dict as setup_j's (the problem: A and b)."""
+    kappa = m_kappa(nc) if kappa is None else kappa
+    domain = (0.0, nc[0] / nc[1], 0.0, 1.0) if domain is None else domain
+    with StepTimes(device, M_STEPS) as steps:
+        t0 = time.perf_counter()
+        mesh = CartesianMesh(nc, domain)
+        mask = mesh.boundary_vertex_mask()
+        A = eliminate_dirichlet(asm_q1.laplacian_var(mesh, kappa, dtype, device), mask)
+        b = np.random.default_rng(0).normal(size=A.n) * (~mask.reshape(-1))
+        b = torch.from_numpy(b).to(device=device, dtype=dtype)
+        if level == "one":
+            P = schwarz_mod.SchwarzLinearSolver(n_subdomains=ns, overlap=2)
+        else:
+            N = (schwarz_mod.slab_neumann_matrices(mesh, ns, overlap=2, kappa=kappa)
+                 if neumann else None)
+            P = schwarz_mod.TwoLevelSchwarzSolver(n_subdomains=ns, overlap=2, nev=nev,
+                                                  neumann_matrices=N,
+                                                  coarse_solver=coarse_solver)
+        solver = CGSolver(Pl=P, rtol=M_RTOL, maxiter=maxiter, flexible=coarse_solver is not None)
+        state = solver.setup(A)
+        if torch.device(device).type == "cuda":
+            fence()
+        total = time.perf_counter() - t0
+    secs = dict(steps.secs)
+    secs["other"] = total - sum(secs.values())
+    return {"prob": types.SimpleNamespace(A=A, b=b), "solver": solver, "state": state,
+            "secs": secs, "setup_s": total}
+
+
+def m_launches(grid_shape, n: int, ns: int, nev: int) -> dict:
+    """K2 launches of one path M1 run (linear/schwarz.py, linear/cg.py) by
+    operand shape (9 bands on the vertex grid): the coarse operator A0 =
+    ZᵀAZ takes one apply a coarse vector (ns * nev); CG applies A once at
+    the start and once an iteration; the Schwarz applies launch none."""
+    return {(9,) + tuple(grid_shape): ns * nev + n + 1}
+
+
+def setup_n(nc, alpha, dtype, device):
+    """Path N through the public API, set up: `make_ams(nc, alpha)` (beta
+    1, vector correction on) and CG rtol 1e-8 <= 100 with the AMS
+    preconditioner, a seeded rhs zero on the constrained edges. Returns a
+    dict as setup_j's (the problem: A, b and the free masks)."""
+    with StepTimes(device, N_STEPS) as steps:
+        t0 = time.perf_counter()
+        A, free, ams = hcurl_mod.make_ams(nc, alpha=alpha, dtype=dtype, device=device)
+        rng = np.random.default_rng(0)
+        b = tuple(torch.from_numpy(rng.normal(size=int(f.shape[0]))).to(device, dtype) * f
+                  for f in free)
+        solver = CGSolver(Pl=ams, rtol=N_RTOL, maxiter=N_MAXITER)
+        state = solver.setup(A)
+        if torch.device(device).type == "cuda":
+            fence()
+        total = time.perf_counter() - t0
+    secs = dict(steps.secs)
+    secs["other"] = total - sum(secs.values())
+    return {"prob": types.SimpleNamespace(A=A, b=b, free=free), "solver": solver,
+            "state": state, "secs": secs, "setup_s": total}
+
+
+def n_launches(A, ams_state, its: list, lanczos: int, degree: int) -> dict:
+    """K3 launches of one path N1 run (fem/hcurl.py, linear/cg.py,
+    linear/amg.py, linear/smoothers.py) by operand shape: set-up, then one
+    solve per entry of `its`, with an `AMSSolver.update` before each solve
+    after the first. An operator apply launches K3 once a block (nine).
+    The set-up and each update run one Lanczos λmax on A (Chebyshev) and
+    one on every AMG level but the coarsest. CG applies A and AMS once at
+    the start and once an iteration; an AMS apply is Chebyshev(degree) on
+    A (degree applies), Gᵀ, the nodal AMG V-cycle and G, and for each
+    component Π_cᵀ, its AMG V-cycle and Π_c. A V-cycle applies each level
+    but the coarsest 2·degree + 1 times with one R and one P there, and
+    the coarsest once (after its dense inverse)."""
+    out = collections.Counter()
+    ams_applies = sum(n + 1 for n in its)
+    a_applies = len(its) * lanczos + ams_applies * (1 + degree)
+    for row in A.blocks:
+        for blk in row:
+            if blk is not None:
+                out[blk.shape] += a_applies
+    for P in [ams_state["G"]] + list(ams_state["Pi"]):
+        out[P.shape] += ams_applies
+    for PT in [ams_state["GT"]] + list(ams_state["PiT"]):
+        out[PT.shape] += ams_applies
+    for amg in [ams_state["node"]] + list(ams_state["vec"]):
+        mats = amg["mats"]
+        for lev, m in enumerate(mats):
+            if lev < len(mats) - 1:
+                out[m.shape] += len(its) * lanczos + ams_applies * (2 * degree + 1)
+                out[amg["R"][lev].shape] += ams_applies
+                out[amg["P"][lev].shape] += ams_applies
+            else:
+                out[m.shape] += ams_applies
+    return dict(out)
+
+
+def scaled_block_operator(A: BlockOperator, c: float) -> BlockOperator:
+    """c A for a BlockOperator of ELL blocks (path N1's update): the same
+    columns and row lengths, the values scaled."""
+    return BlockOperator(tuple(
+        tuple(None if b is None else dataclasses.replace(b, values=c * b.values) for b in row)
+        for row in A.blocks))
+
+
+def setup_o(nc, levels, dtype, device, gamma=1.0, cycle="v"):
+    """Path O through the public API, set up: `mhd_gmg(nc, levels, gamma,
+    maxiter=1, cycle)` (Richardson(2, 0.3) over the vertex Vanka, dense LU
+    on the coarsest level) as the right preconditioner of FGMRES(30) rtol
+    1e-6 <= 40 on its problem. Returns a dict as setup_j's."""
+    with StepTimes(device, O_STEPS) as steps:
+        t0 = time.perf_counter()
+        gmg, prob = mhd_mod.mhd_gmg(nc, levels, gamma=gamma, maxiter=1, cycle=cycle,
+                                    dtype=dtype, device=device)
+        solver = FGMRESSolver(m=30, Pr=gmg, rtol=O_RTOL, maxiter=O_MAXITER)
+        state = solver.setup(prob.A)
+        if torch.device(device).type == "cuda":
+            fence()
+        total = time.perf_counter() - t0
+    secs = dict(steps.secs)
+    secs["other"] = total - sum(secs.values())
+    return {"prob": prob, "solver": solver, "state": state, "levels": levels, "secs": secs,
+            "setup_s": total}
+
+
+def o_launches(mats, n: int, m: int, niter: int) -> dict:
+    """K3 launches of one path O1 run (fem/mhd.py, linear/gmres.py,
+    linear/gmg.py) by operand shape: an operator apply launches K3 once a
+    block (ten of the 6 x 6: the six diagonal blocks and the four
+    couplings). FGMRES(m) applies the fine operator `fgmres_applies`
+    times and the GMG once an iteration; a V-cycle applies each level but
+    the coarsest 2·niter + 1 times (Richardson's residual updates and the
+    coarse correction's) and the coarsest once. `mats`: the GMG's level
+    operators."""
+    out = collections.Counter()
+    for lev, A in enumerate(mats):
+        applies = n if lev == len(mats) - 1 else n * (2 * niter + 1)
+        if lev == 0:
+            applies += fgmres_applies(n, m)
+        for row in A.blocks:
+            for blk in row:
+                if blk is not None:
+                    out[blk.shape] += applies
+    return dict(out)
+
+
 def k2_bound_ms(A: StencilMatrix, x: torch.Tensor) -> float:
     """Bytes K2 must move (every band read once, x and y once each) over
     the card's memory rate."""
@@ -1519,6 +1770,297 @@ def paths_jkl(dev, opts, card, elapsed, launches, check_k2, check_ell, vec, line
     return {"jk_ops": jk_ops, "j_block_launches": j_block_launches, "shapes_j": shapes_j,
             "shapes_j3": shapes_j3, "shapes_k": shapes_k, "t_solve_j": t_solve_j,
             "t_solve_k": t_solve_k}
+
+
+def paths_mno(dev, opts, card, elapsed, launches, check_k2, check_ell, lines) -> dict:
+    """Paths M, N and O on `dev` (main's phases 6M, 6N, 6O), as paths_jkl:
+    each counted run's launches go into `launches`, each kernel check
+    through main's `check_k2` / `check_ell` (with `lines`), on vectors of
+    its own generator, so that the phases after it see the inputs they saw
+    before it was added.
+    Returns what phase 8 times and reports: the timed operators (`ops`),
+    each one's launches in its run (`op_launches`), the counted runs'
+    launches by operand shape and the M1, N1 and O1 solve times."""
+    f32, f64 = torch.float32, torch.float64
+    lanczos = ChebyshevSmoother().lanczos_iters
+    rng = np.random.default_rng(10)
+
+    def vec(n, dtype):
+        return torch.from_numpy(rng.normal(size=n)).to(dev, dtype)
+
+    def flat(x):
+        return torch.cat([t.reshape(-1) for t in pt.tree_leaves(x)])
+
+    def true_rel(A, b, x):
+        return float(pt.norm(pt.sub(b, A.matvec(x))) / pt.norm(b))
+
+    def card_cpu(tag, runs, tol, cap=None):
+        """Card (runs[0]) against CPU (runs[1]): iterations and flags equal,
+        x within tol of max|x|."""
+        (xc, sc), (xh, sh) = ((r["x"], r["stats"]) for r in runs)
+        assert sc.niter == sh.niter and int(sc.flag) == int(sh.flag), (
+            tag, sc.niter, sh.niter, sc.flag, sh.flag)
+        assert cap is None or (sc.converged() and sc.niter <= cap), (tag, sc.niter, sc.flag)
+        e = relerr(flat(xc).cpu(), flat(xh))
+        assert e <= tol, f"{tag}: card against CPU x {e:.2e} > {tol:g}"
+        return f"{tag} {sc.niter} = {sh.niter} its, flag {sc.flag}, x rel diff {e:.1e}"
+
+    def by_shape(counts):
+        return ", ".join(f"{'x'.join(map(str, k))} {v}" for k, v in sorted(counts.items()))
+
+    def setup_line(run):
+        return (f"set-up {run['setup_s']:.2f} s by step: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in run["secs"].items()))
+
+    def hist(st):
+        return " ".join(f"{v:.3e}" for v in st.residuals.cpu().numpy()[: st.niter + 1])
+
+    def check_ops(tag, named):
+        """Each operator against its plain version, f64 as the path runs
+        it, and f32."""
+        for key, A64 in named.items():
+            for dt, tol in ((f64, F64_TOL), (f32, F32_TOL)):
+                A = A64.astype(dt)
+                if isinstance(A, StencilMatrix):
+                    check_k2(f"[{key}]{str(dt)[6:]}", A, vec(A.n, dt), tol, False)
+                else:
+                    check_ell(f"K3[{key} {A.nrows}x{A.ncols} K={A.row_width}]{str(dt)[6:]}", A,
+                              vec(A.ncols, dt), tol)
+        print(f"[{tag} kernels] {len(lines)} cases on the path's operators within f32 "
+              f"{F32_TOL:.0e} / f64 {F64_TOL:.0e}: " + ", ".join(lines) + f" {elapsed()}",
+              flush=True)
+        lines.clear()
+
+    ops, op_launches, shapes, t_solve = {}, {}, {}, {}
+
+    # ---- 6M path M: two-level Schwarz with GenEO --------------------------
+    # M2 (card = CPU) at the test size: the one-level solver, the two-level
+    # one with the Neumann matrices and without (the algebraic pencil), and
+    # the nested coarse solver (CG + Jacobi on A0, flexible CG outside)
+    kap2 = np.ones(M2_NC)
+    kap2[:, 2] = 1e4
+    small = []
+    for ns, level, neumann, nested in ((2, "one", False, False), (2, "two", True, False),
+                                       (2, "two", False, False), (4, "one", False, False),
+                                       (4, "two", True, False), (4, "two", False, False),
+                                       (4, "two", True, True)):
+        runs = [solve_j(setup_m(M2_NC, ns, 2, f64, d, kappa=kap2, level=level, neumann=neumann,
+                                domain=(0.0, 1.0, 0.0, 1.0),
+                                coarse_solver=CGSolver(Pl=JacobiSolver(), rtol=1e-10,
+                                                       maxiter=100) if nested else None))
+                for d in (dev, "cpu")]
+        tag = (f"{level}-level{' Neumann' if neumann else ''}{' nested coarse' if nested else ''}"
+               f" ns {ns}")
+        small.append(card_cpu(tag, runs, M2_TOL))
+    del runs
+    # M1, counted
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    with SyncCount() as syncs:
+        run_m = setup_m(NC_M, NS_M, NEV_M, f64, dev)
+        syncs_m = [syncs.read()]
+        solve_j(run_m)
+        syncs_m.append(syncs.read() - syncs_m[0])
+    launches["M1"] = read_counts(k2_box=False)
+    shapes["M1"] = dict(k2.counts.shapes)
+    mem_m = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+    A_m, b_m, x_m, st_m = run_m["prob"].A, run_m["prob"].b, run_m["x"], run_m["stats"]
+    want_m = m_launches(A_m.grid_shape, st_m.niter, NS_M, NEV_M)
+    assert shapes["M1"] == want_m, (shapes["M1"], want_m)
+    assert launches["M1"]["K1"] == launches["M1"]["K3"] == 0, launches["M1"]
+    assert st_m.converged() and M_ITS[0] <= st_m.niter <= M_ITS[1], (st_m.niter, st_m.flag)
+    assert x_m.shape == (A_m.n,) and x_m.dtype == f64 and bool(torch.isfinite(x_m).all())
+    rel_m = true_rel(A_m, b_m, x_m)
+    assert rel_m <= 10 * M_RTOL, rel_m      # tests/test_schwarz.py's check
+    lam = run_m["state"]["Pl"]["eigenvalues"]
+    gap_m = float((lam[:, NEV_M] / lam[:, NEV_M - 1]).min())
+    t_solve["M1"] = median_ms(lambda: run_m["solver"].solve(run_m["state"], b_m), runs=3,
+                              warmup=0, spin=False)
+    line_m = (f"M1 {NC_M[0]}x{NC_M[1]} square cells f64 ({A_m.n} unknowns; kappa 1e4 in cell columns "
+              f"{M_CHANNELS}; {NS_M} slabs of overlap 2, nev {NEV_M}, Neumann matrices; CG rtol "
+              f"{M_RTOL:g} <= {M_MAXITER}; counted): {st_m.niter} its (band {M_ITS}), flag "
+              f"{st_m.flag}, residuals {hist(st_m)}; true relative residual {rel_m:.3e} (<= "
+              f"{10 * M_RTOL:g}); smallest eigenvalue ratio lambda_{NEV_M + 1} / lambda_{NEV_M} "
+              f"over the slabs {gap_m:.4f}; {setup_line(run_m)}; solve {run_m['solve_s']:.3f} s "
+              f"(median of 3 more {t_solve['M1'] / 1e3:.3f} s); host syncs measured: set-up "
+              f"{syncs_m[0]}, solve {syncs_m[1]}; peak device memory {mem_m:.2f} GiB over what "
+              f"earlier paths hold; K2 launches by shape equal to m_launches: "
+              f"{by_shape(shapes['M1'])}; K1 0, K3 0, plain 0")
+    if opts.profile is not None:
+        summary = profile_solve(lambda: run_m["solver"].solve(run_m["state"], b_m),
+                                opts.profile, "path_M1")
+        print(f"[profile] path M1 solve, {card}: {summary} {elapsed()}", flush=True)
+    del run_m, x_m
+    torch.cuda.empty_cache()
+    # the one-level solver beside it, on the same operator
+    one = CGSolver(Pl=schwarz_mod.SchwarzLinearSolver(n_subdomains=NS_M, overlap=2),
+                   rtol=M_RTOL, maxiter=M_MAXITER)
+    t0 = time.perf_counter()
+    _, st_one = one.solve(one.setup(A_m), b_m)
+    fence()
+    t_one = time.perf_counter() - t0
+    assert st_one.niter > st_m.niter, (st_one.niter, st_m.niter)
+    print(f"[6M path M] two-level Schwarz (GenEO): M2 card = CPU ({M2_NC[0]}x{M2_NC[1]} cells, "
+          f"kappa 1e4 in cell column 2, overlap 2, nev 2): " + "; ".join(small) + f"; {line_m}; "
+          f"one-level Schwarz on the same operator: {st_one.niter} its, flag {st_one.flag} "
+          f"(set-up and solve {t_one:.2f} s) {elapsed()}", flush=True)
+    check_ops("6M", {"M K2 A 9 bands": A_m})
+    key = f"M K2 A 9 bands"
+    ops[key] = A_m
+    op_launches[key] = want_m[(9,) + A_m.grid_shape]
+    del one, b_m
+    torch.cuda.empty_cache()
+
+    # ---- 6N path N: H(curl) curl-curl with AMS ----------------------------
+    # N2 (card = CPU): tests/test_hcurl.py's sizes and alphas; at 16^2,
+    # alpha 1 the nodal AMG's coarsest operator is singular (constants lie
+    # in the kernel of GᵀAG) and its dense inverse amplifies each device's
+    # round-off along that kernel: x held to N2_SINGULAR_TOL there
+    small = []
+    for nc, alpha in (((16, 16), 1.0), ((16, 16), 100.0), ((8, 8, 8), 1.0), ((8, 8, 8), 100.0)):
+        runs = [solve_j(setup_n(nc, alpha, f64, d)) for d in (dev, "cpu")]
+        tol = N2_SINGULAR_TOL if (len(nc), alpha) == (2, 1.0) else N2_TOL
+        small.append(card_cpu(f"{nc} alpha {alpha:g}", runs, tol, cap=40))
+    del runs
+    # N1, counted: set-up, solve, AMSSolver.update on 2A, solve
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    with SyncCount() as syncs:
+        run_n = setup_n((NC_N,) * 3, 1.0, f64, dev)
+        syncs_n = [syncs.read()]
+        solve_j(run_n)
+        syncs_n.append(syncs.read() - syncs_n[0])
+        A_n, b_n = run_n["prob"].A, run_n["prob"].b
+        A2_n = scaled_block_operator(A_n, 2.0)
+        t0 = time.perf_counter()
+        state2 = run_n["solver"].update(run_n["state"], A2_n)
+        fence()
+        t_up = time.perf_counter() - t0
+        syncs_n.append(syncs.read() - sum(syncs_n))
+        t0 = time.perf_counter()
+        x2, st2 = run_n["solver"].solve(state2, b_n)
+        fence()
+        t_s2 = time.perf_counter() - t0
+    launches["N1"] = read_counts(k2_box=False)
+    shapes["N1"] = dict(k3.counts.shapes)
+    mem_n = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+    x_n, st_n = run_n["x"], run_n["stats"]
+    ams = state2["Pl"]
+    want_n = n_launches(A_n, ams, [st_n.niter, st2.niter], lanczos, 3)
+    assert shapes["N1"] == want_n, (shapes["N1"], want_n)
+    assert launches["N1"]["K1"] == launches["N1"]["K2"] == 0, launches["N1"]
+    for st_ in (st_n, st2):
+        assert st_.converged() and N_ITS[0] <= st_.niter <= N_ITS[1], (st_.niter, st_.flag)
+    n_edges = sum(int(t.shape[0]) for t in b_n)
+    assert [int(t.shape[0]) for t in pt.tree_leaves(x_n)] == [NC_N * (NC_N + 1) ** 2] * 3
+    assert all(t.dtype == f64 and bool(torch.isfinite(t).all()) for t in pt.tree_leaves(x_n))
+    rel_n, rel2 = true_rel(A_n, b_n, x_n), true_rel(A2_n, b_n, x2)
+    assert rel_n <= 10 * N_RTOL and rel2 <= 10 * N_RTOL, (rel_n, rel2)
+    # AMS on 2A is AMS on A halved (Chebyshev sees D⁻¹A, AMG's levels
+    # scale), so the second solve repeats the first at x / 2
+    e_half = relerr(2.0 * flat(x2), flat(x_n))
+    assert st2.niter == st_n.niter and e_half <= N2_TOL, (st2.niter, st_n.niter, e_half)
+    levels_n = [len(h["mats"]) for h in [ams["node"]] + list(ams["vec"])]
+    coarse_n = [h["mats"][-1].shape[0] for h in [ams["node"]] + list(ams["vec"])]
+    t_solve["N1"] = median_ms(lambda: run_n["solver"].solve(state2, b_n), runs=3, warmup=0,
+                              spin=False)
+    print(f"[6N path N] curl-curl + AMS: N2 card = CPU (CG rtol {N_RTOL:g}, <= 40 its): "
+          + "; ".join(small)
+          + f"; N1 make_ams(({NC_N},)*3, alpha 1, beta 1) f64 ({n_edges} edges; Chebyshev(3) + "
+          f"AMG on GᵀAG and on each Π_cᵀAΠ_c, AMG levels {levels_n}, coarsest {coarse_n}; CG "
+          f"rtol {N_RTOL:g} <= {N_MAXITER}; counted): {st_n.niter} its (band {N_ITS}), flag "
+          f"{st_n.flag}, residuals {hist(st_n)}; true relative residual {rel_n:.3e}; "
+          f"{setup_line(run_n)}; solve {run_n['solve_s']:.3f} s; AMSSolver.update on 2A "
+          f"{t_up:.2f} s, then {st2.niter} its, flag {st2.flag}, true relative residual "
+          f"{rel2:.3e}, 2 x2 against x {e_half:.1e}, solve {t_s2:.3f} s (median of 3 more "
+          f"{t_solve['N1'] / 1e3:.3f} s); host syncs measured: set-up {syncs_n[0]}, solve "
+          f"{syncs_n[1]}, update {syncs_n[2]}; peak device memory {mem_n:.2f} GiB over what "
+          f"earlier paths hold; K3 launches by shape equal to n_launches: "
+          f"{by_shape(shapes['N1'])}; K1 0, K2 0, plain 0 {elapsed()}", flush=True)
+    if opts.profile is not None:
+        summary = profile_solve(lambda: run_n["solver"].solve(state2, b_n), opts.profile,
+                                "path_N1")
+        print(f"[profile] path N1 solve, {card}: {summary} {elapsed()}", flush=True)
+    # N1's operators: the level-0 edge blocks (0,0) and (0,1), G, Gᵀ, Π_0
+    # and Π_0ᵀ; each one's launches: its shape's count over the operators
+    # of that shape (the nine blocks share one; G and the three Π_c
+    # another; Gᵀ and the Π_cᵀ a third)
+    named = {"N K3 A (0,0)": A_n.blocks[0][0], "N K3 A (0,1)": A_n.blocks[0][1],
+             "N K3 G": ams["G"], "N K3 Gt": ams["GT"], "N K3 Pi0": ams["Pi"][0],
+             "N K3 Pi0t": ams["PiT"][0]}
+    check_ops("6N", named)
+    for key, A_ in named.items():
+        share = 9 if " A " in key else 4
+        ops[key] = A_
+        op_launches[key] = shapes["N1"][A_.shape] // share
+    del run_n, state2, ams, x_n, x2, A2_n, b_n
+    torch.cuda.empty_cache()
+
+    # ---- 6O path O: 3D MHD multifield GMG ---------------------------------
+    # O2 (card = CPU): 8^3, 2 levels, the V, W and F cycles at gamma 1 and
+    # the V-cycle at gamma 10 (tests/test_multifield.py: <= 20 and <= 30 its)
+    small = []
+    for cycle, gamma, cap in (("v", 1.0, 20), ("w", 1.0, 20), ("f", 1.0, 20), ("v", 10.0, 30)):
+        runs = [solve_j(setup_o((8, 8, 8), 2, f64, d, gamma=gamma, cycle=cycle))
+                for d in (dev, "cpu")]
+        small.append(card_cpu(f"{cycle}-cycle gamma {gamma:g}", runs, O2_TOL, cap=cap))
+    del runs
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    with SyncCount() as syncs:
+        run_o = setup_o((NC_O,) * 3, LEVELS_O, f64, dev)
+        syncs_o = [syncs.read()]
+        solve_j(run_o)
+        syncs_o.append(syncs.read() - syncs_o[0])
+    launches["O1"] = read_counts(k2_box=False)
+    shapes["O1"] = dict(k3.counts.shapes)
+    mem_o = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+    prob_o, x_o, st_o = run_o["prob"], run_o["x"], run_o["stats"]
+    mats_o = run_o["state"]["Pr"]["mats"]
+    want_o = o_launches(mats_o, st_o.niter, 30, 2)
+    assert shapes["O1"] == want_o, (shapes["O1"], want_o)
+    assert launches["O1"]["K1"] == launches["O1"]["K2"] == 0, launches["O1"]
+    assert st_o.converged() and O_ITS[0] <= st_o.niter <= O_ITS[1], (st_o.niter, st_o.flag)
+    n_node, n_face = (NC_O + 1) ** 3, (NC_O + 1) * NC_O ** 2
+    assert [int(t.shape[0]) for t in x_o] == [n_node] * 3 + [n_face] * 3
+    assert all(t.dtype == f64 and bool(torch.isfinite(t).all()) for t in x_o)
+    res_o = prob_o.residual_norm(x_o)
+    bnorm_o = float(pt.norm(prob_o.b))
+    assert res_o < O_RES_REL * bnorm_o, (res_o, bnorm_o)
+    t_solve["O1"] = median_ms(lambda: run_o["solver"].solve(run_o["state"], prob_o.b), runs=3,
+                              warmup=0, spin=False)
+    print(f"[6O path O] MHD multifield GMG: O2 card = CPU (8^3, 2 levels, FGMRES(30) rtol "
+          f"{O_RTOL:g}): " + "; ".join(small)
+          + f"; O1 mhd_gmg(({NC_O},)*3, {LEVELS_O}) f64 ({3 * n_node + 3 * n_face} unknowns in "
+          f"6 fields; Richardson(2, 0.3) over the 15-dof vertex Vanka, "
+          f"{(NC_O - 1) ** 3} patches at level 0, dense LU at {NC_O >> (LEVELS_O - 1)}^3; "
+          f"FGMRES(30) rtol {O_RTOL:g} <= {O_MAXITER}; counted): {st_o.niter} its (band "
+          f"{O_ITS}), flag {st_o.flag}, residuals {hist(st_o)}; residual_norm {res_o:.3e} "
+          f"(< {O_RES_REL:g} x ||b|| = {O_RES_REL * bnorm_o:.3e}); {setup_line(run_o)}; solve "
+          f"{run_o['solve_s']:.3f} s (median of 3 more {t_solve['O1'] / 1e3:.3f} s); host syncs "
+          f"measured: set-up {syncs_o[0]}, solve {syncs_o[1]}; peak device memory {mem_o:.2f} "
+          f"GiB over what earlier paths hold; K3 launches by shape equal to o_launches: "
+          f"{by_shape(shapes['O1'])}; K1 0, K2 0, plain 0 {elapsed()}", flush=True)
+    if opts.profile is not None:
+        summary = profile_solve(lambda: run_o["solver"].solve(run_o["state"], prob_o.b),
+                                opts.profile, "path_O1")
+        print(f"[profile] path O1 solve, {card}: {summary} {elapsed()}", flush=True)
+    # O1's level-0 u-u, u-j, j-u and j-j blocks; each one's launches: its
+    # shape's count over the level-0 blocks of that shape
+    A0 = prob_o.A
+    named = {"O K3 u-u (0,0)": A0.blocks[0][0], "O K3 u-j (0,4)": A0.blocks[0][4],
+             "O K3 j-u (4,0)": A0.blocks[4][0], "O K3 j-j (3,3)": A0.blocks[3][3]}
+    check_ops("6O", named)
+    per_shape = collections.Counter(b.shape for row in A0.blocks for b in row if b is not None)
+    for key, A_ in named.items():
+        ops[key] = A_
+        op_launches[key] = shapes["O1"][A_.shape] // per_shape[A_.shape]
+    del run_o, x_o, mats_o
+    torch.cuda.empty_cache()
+    return {"ops": ops, "op_launches": op_launches, "shapes": shapes, "t_solve": t_solve}
 
 
 def ell_csr(A: ELLMatrix, index=torch.int32) -> torch.Tensor:
@@ -2665,6 +3207,9 @@ def main() -> None:
     # ---- 6J, 6K, 6L paths J, K and L: Darcy, elasticity, the small modules
     jk = paths_jkl(dev, opts, card, elapsed, launches, check_k2, check_ell, vec, lines)
 
+    # ---- 6M, 6N, 6O paths M, N and O: GenEO Schwarz, H(curl) + AMS, MHD
+    mno = paths_mno(dev, opts, card, elapsed, launches, check_k2, check_ell, lines)
+
     # ---- 7 K3 on path C's own operators ---------------------------------
     ops = ([(f"level {i}", m) for i, m in enumerate(amg["mats"]) if i > 0]
            + [(f"P{i}", m) for i, m in enumerate(amg["P"])]
@@ -2912,7 +3457,8 @@ def main() -> None:
     # CSR with int32 and int64 indices on the same real entries (which also
     # cross-checks y) and the bytes bound
     jk_keys = {}
-    jk_ops, j_block_launches = jk["jk_ops"], jk["j_block_launches"]
+    jk_ops = {**jk["jk_ops"], **mno["ops"]}
+    j_block_launches = {**jk["j_block_launches"], **mno["op_launches"]}
     for key, A in jk_ops.items():
         xj = vec(A.shape[1], f64)
         if isinstance(A, StencilMatrix):
@@ -3038,9 +3584,19 @@ def main() -> None:
                       f"plain {t[key + ' plain']:.4f}, cuSPARSE int32 {t[key + ' library']:.4f} "
                       f"(int64 {t[key + ' library int64']:.4f}), bound {bound[key]:.4f}, "
                       f"launches {j_block_launches[key]}, kernel vs cuSPARSE y {e:.1e}"
-                      for key, (desc, e) in jk_keys.items())
+                      for key, (desc, e) in jk_keys.items() if key not in mno["ops"])
           + f" | solve only, median of 3: J1 {jk['t_solve_j']:.2f} ms, Ka {jk['t_solve_k']:.2f} ms "
           f"{elapsed()}", flush=True)
+    print(f"[8 M N O] {card} | paths M1 ({NC_M[0]}x{NC_M[1]}), N1 ({NC_N}^3) and O1 ({NC_O}^3) "
+          f"operators, f64, median of {TIMING_RUNS} (CUDA events), ms per apply: "
+          + "; ".join(f"{key} ({desc}) kernel {t[key]:.4f} (cold {t[key + ' cold']:.4f}), "
+                      f"plain {t[key + ' plain']:.4f}, cuSPARSE int32 {t[key + ' library']:.4f} "
+                      f"(int64 {t[key + ' library int64']:.4f}), bound {bound[key]:.4f}, "
+                      f"launches {j_block_launches[key]}, kernel vs cuSPARSE y {e:.1e}"
+                      for key, (desc, e) in jk_keys.items() if key in mno["ops"])
+          + " | solve only, median of 3: " + ", ".join(f"{k} {v:.2f} ms"
+                                                        for k, v in mno["t_solve"].items())
+          + f" {elapsed()}", flush=True)
     if opts.profile is not None:
         summary = profile_solve(lambda: cgC.solve(stateC, probC.b), opts.profile, "path_c")
         print(f"[profile] path C solve, {card}: {summary} {elapsed()}", flush=True)
@@ -3130,6 +3686,15 @@ def main() -> None:
     k3_row["darcy"]["J1 launches_by_shape"] = by_shape(jk["shapes_j"]["K3"])
     k3_row["darcy"]["J3 launches_by_shape"] = by_shape(jk["shapes_j3"])
     k3_row["elasticity"] = {"Kc launches": launches["Kc"]["K3"]}
+    # paths M, N and O: each timed operator's launches in its run, and the
+    # kernel's launches by operand shape in each counted run
+    k2_row["schwarz"] = {"M1 " + key.split(" K2 ")[1]: jk_entry(key) for key in jk_keys
+                         if key.startswith("M K2")}
+    k2_row["schwarz"]["M1 launches_by_shape"] = by_shape(mno["shapes"]["M1"])
+    for name, path in (("hcurl", "N"), ("mhd", "O")):
+        k3_row[name] = {f"{path}1 " + key.split(" K3 ")[1]: jk_entry(key) for key in jk_keys
+                        if key.startswith(f"{path} K3")}
+        k3_row[name][f"{path}1 launches_by_shape"] = by_shape(mno["shapes"][f"{path}1"])
     k1_row = row("K1", "K1 const_stencil", "gridapsolvers_tpu_torch/csrc/const_stencil.cu",
                  "gridapsolvers_tpu/ops/stencil_pallas.py:61", "K1")
     k1_row.update({

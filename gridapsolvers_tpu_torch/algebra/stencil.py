@@ -287,3 +287,19 @@ class ConstStencilMatrix:
 
     def todense(self) -> torch.Tensor:
         return self.expand().todense()
+
+
+def poisson_stencil(
+    grid_shape: Tuple[int, ...],
+    h: Sequence[float],
+    dtype=torch.float64,
+    dirichlet_mask: Optional[np.ndarray] = None,
+    device=None,
+) -> StencilMatrix:
+    """Q1 FEM Laplacian bands on a uniform Cartesian vertex grid, assembled
+    band-wise on the host (see `fem.assembly.assemble_poisson_stencil`).
+    `dirichlet_mask` marks constrained dofs: their rows and columns become
+    identity."""
+    from ..fem.assembly import assemble_poisson_stencil
+
+    return assemble_poisson_stencil(grid_shape, h, dtype, dirichlet_mask, device)

@@ -20,6 +20,7 @@ from .fem.darcy import DarcyProblem
 from .fem.elasticity import ElasticityProblem
 from .fem.hdiv import RTProlongation, RTRestriction
 from .fem.mesh import CartesianMesh
+from .fem.mhd import MHDProblem
 from .fem.navier_stokes import NavierStokesProblem
 from .fem.rt1 import DarcyRT1Problem, RT1Prolongation, RT1Restriction
 from .fem.poisson import PoissonProblem
@@ -522,3 +523,24 @@ def elasticity_problem(mesh: CartesianMesh, A: dict, b, dirichlet_mask, mu: floa
                              b=_vec(b, device, dtype),
                              dirichlet_mask=np.asarray(dirichlet_mask, dtype=bool),
                              mu=float(mu), lam=float(lam))
+
+
+def curlcurl_operator(A: dict, free, system: dict, *, device=None, dtype=None):
+    """(BlockOperator, free masks, system dict) of the JAX package's
+    `curlcurl_operator`: the operator from its numpy fields (a dict for
+    `operator`), the masks as numpy arrays, and its host system dict
+    (scipy blocks, masks, G, Pi), whose scipy matrices carry over as they
+    are."""
+    sysd = dict(system)
+    sysd["ncells"] = tuple(int(n) for n in system["ncells"])
+    return operator(A, device=device, dtype=dtype), _vec(tuple(free), device, dtype), sysd
+
+
+def mhd_problem(ncells, A: dict, b, free, *, device=None, dtype=None) -> MHDProblem:
+    """`MHDProblem` from the JAX one's operator (a dict for `operator`),
+    its rhs and free masks (tuples of six numpy arrays) and its cells; a
+    list of them, finest first, builds the port's GMG through
+    `fem.mhd.mhd_gmg_from_problems`."""
+    return MHDProblem(ncells=tuple(int(n) for n in ncells),
+                      A=operator(A, device=device, dtype=dtype), b=_vec(tuple(b), device, dtype),
+                      free=_vec(tuple(free), device, dtype))

@@ -1,5 +1,6 @@
 from .mesh import CartesianMesh  # noqa: F401
 from .assembly import (  # noqa: F401
+    assemble_poisson_stencil,
     assemble_q1_stencil,
     dirichlet_rhs,
     eliminate_dirichlet,

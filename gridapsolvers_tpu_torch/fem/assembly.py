@@ -83,6 +83,42 @@ def q1_bands_host(
     return bands
 
 
+def q1_var_bands_host(
+    mesh: CartesianMesh,
+    element_matrix: np.ndarray,
+    cell_values: np.ndarray,
+    dtype=np.float64,
+) -> np.ndarray:
+    """Host bands of a Q1 operator with a per-cell scalar coefficient: the
+    element matrix of cell c is cell_values[c] * element_matrix. Each
+    corner pair (a, b) adds Ke[a,b] * kappa over a whole slab (no per-cell
+    loop); on a periodic axis the coefficient wraps by `np.roll`, as in
+    the JAX package."""
+    d = mesh.dim
+    shape = mesh.vertex_shape
+    kappa = np.asarray(cell_values, dtype=dtype).reshape(mesh.ncells)
+    corners = _corner_offsets(d)
+    offsets = q1_offsets(d)
+    off_index = {o: i for i, o in enumerate(offsets)}
+    bands = np.zeros((len(offsets),) + shape, dtype=dtype)
+    for ia, a in enumerate(corners):
+        for ib, b in enumerate(corners):
+            o = tuple(b[k] - a[k] for k in range(d))
+            # vertex v = c + a receives Ke[a,b] * kappa[c]; per axis the
+            # target rows are [a_k, ncells_k + a_k) (open) or all rows with
+            # kappa rolled by +a_k (periodic wrap)
+            kap = kappa
+            sl = []
+            for k in range(d):
+                if mesh.periodic[k]:
+                    kap = np.roll(kap, a[k], axis=k)
+                    sl.append(slice(None))
+                else:
+                    sl.append(slice(a[k], mesh.ncells[k] + a[k]))
+            bands[off_index[o]][tuple(sl)] += element_matrix[ia, ib] * kap
+    return bands
+
+
 def matvec_host(bands, offsets, periodic, x) -> np.ndarray:
     """Pure-NumPy banded matvec for setup-time host paths (RHS lifting)."""
     xg = np.asarray(x).reshape(bands.shape[1:])
@@ -123,6 +159,47 @@ def assemble_q1_stencil(
     """Assemble a Q1 operator band-wise from a (2^d, 2^d) element matrix."""
     bands = q1_bands_host(mesh, element_matrix, numpy_dtype(dtype))
     return q1_stencil(mesh, bands, dtype, device)
+
+
+def assemble_q1_stencil_var(
+    mesh: CartesianMesh,
+    element_matrix: np.ndarray,
+    cell_values: np.ndarray,
+    dtype=torch.float64,
+    device=None,
+) -> StencilMatrix:
+    """Q1 operator with a per-cell scalar coefficient (exact for
+    piecewise-constant coefficients)."""
+    bands = q1_var_bands_host(mesh, element_matrix, cell_values, numpy_dtype(dtype))
+    return q1_stencil(mesh, bands, dtype, device)
+
+
+def laplacian_var(
+    mesh: CartesianMesh, kappa: np.ndarray, dtype=torch.float64, device=None
+) -> StencilMatrix:
+    """-div(kappa grad u) with piecewise-constant (per-cell) kappa."""
+    Ke, _ = q1_element_matrices(mesh.h)
+    return assemble_q1_stencil_var(mesh, Ke, kappa, dtype, device)
+
+
+def assemble_poisson_stencil(
+    grid_shape: Sequence[int],
+    h: Sequence[float],
+    dtype=torch.float64,
+    dirichlet_mask: np.ndarray = None,
+    device=None,
+) -> StencilMatrix:
+    """Q1 Laplacian bands on a uniform vertex grid of `grid_shape`, with
+    the dofs of `dirichlet_mask` eliminated (identity rows, zeroed
+    columns)."""
+    ncells = tuple(n - 1 for n in grid_shape)
+    domain = tuple(x for k in range(len(ncells)) for x in (0.0, h[k] * ncells[k]))
+    mesh = CartesianMesh(ncells, domain)
+    Ke, _ = q1_element_matrices(h)
+    A = assemble_q1_stencil(mesh, Ke, dtype, device)
+    if dirichlet_mask is not None:
+        A = eliminate_dirichlet(A, np.asarray(dirichlet_mask))
+    return A
 
 
 def laplacian(mesh: CartesianMesh, dtype=torch.float64, device=None) -> StencilMatrix:

@@ -30,3 +30,8 @@ from .wrappers import (  # noqa: F401
 )
 from .amg import AMGSolver  # noqa: F401
 from .schur import SchurComplementSolver  # noqa: F401
+from .schwarz import (  # noqa: F401
+    SchwarzLinearSolver,
+    TwoLevelSchwarzSolver,
+    slab_neumann_matrices,
+)

@@ -18,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from jax_reference_jit import jsolve
 from gridapsolvers_tpu.fem import poisson_problem as j_poisson_problem
 from gridapsolvers_tpu.fem.assembly import eliminate_dirichlet as j_eliminate
 from gridapsolvers_tpu.fem.assembly import laplacian as j_laplacian
@@ -39,6 +41,7 @@ from gridapsolvers_tpu_torch.multilevel import cartesian_hierarchy
 from gridapsolvers_tpu_torch.ops import banded_stencil, ell_spmv
 
 torch.set_num_threads(1)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VCYCLE_RTOL = 1e-10
@@ -197,7 +200,7 @@ def test_amg_cg_matches_jax():
     K2 = (n+1)(2k+2), K3 = (n+1)((L-2)(2k+1) + 1 + 2(L-1)) in the solve."""
     jp, jst, p, _ = _hierarchies(16)
     jcg = JCG(Pl=JAMG(coarse_size=400, engine="ell"), rtol=1e-8, maxiter=60)
-    jx, jstats = jcg.solve({"A": jp.A, "Pl": jst}, jp.b)
+    jx, jstats = jsolve(jcg, {"A": jp.A, "Pl": jst}, jp.b)
     cg = CGSolver(Pl=AMGSolver(coarse_size=400), rtol=1e-8, maxiter=60)
     counters = (banded_stencil.counts, ell_spmv.counts)
     before = [(c.kernel, c.plain) for c in counters]
@@ -231,7 +234,7 @@ def test_amg_as_gmg_coarsest_solver_matches_jax():
         smoother=JCheby(degree=3), coarsest_solver=JAMG(coarse_size=100, ncycles=2, engine="ell"),
     )
     jcg = JCG(Pl=jgmg, rtol=1e-8, maxiter=40)
-    jx, jstats = jcg.solve(jcg.setup(jp.A), jp.b)
+    jx, jstats = jsolve(jcg, jcg.setup(jp.A), jp.b)
 
     p = poisson_problem(nc, device="cpu")
     gmg = gmg_from_hierarchy(
@@ -263,7 +266,8 @@ from gridapsolvers_tpu_torch.linear import AMGSolver, CGSolver
 torch.set_num_threads(1)
 jp = j_poisson_problem((16,) * 3, dtype=np.float32)
 jcg = JCG(Pl=JAMG(coarse_size=400, engine="ell"), rtol=1e-6, maxiter=60)
-jx, jst = jcg.solve(jcg.setup(jp.A), jp.b)
+jst0 = jcg.setup(jp.A)
+jx, jst = jax.jit(lambda b: jcg.solve(jst0, b))(jp.b)   # eagerly: op by op, slower
 p = poisson_problem((16,) * 3, dtype=torch.float32, device="cpu")
 cg = CGSolver(Pl=AMGSolver(coarse_size=400), rtol=1e-6, maxiter=60)
 x, st = cg.solve(cg.setup(p.A), p.b)

@@ -14,6 +14,7 @@ import torch
 import jax.numpy as jnp
 
 import __graft_entry__
+from jax_reference_jit import jsolve, jitted_jax_solves
 from gridapsolvers_tpu.fem import poisson_problem as j_poisson_problem
 from gridapsolvers_tpu.fem.assembly import eliminate_dirichlet as j_eliminate
 from gridapsolvers_tpu.fem.assembly import laplacian as j_laplacian
@@ -45,6 +46,7 @@ from gridapsolvers_tpu_torch.models import solve_poisson, solve_poisson_const
 from gridapsolvers_tpu_torch.ops import banded_stencil, const_stencil
 
 torch.set_num_threads(1)
+
 
 HIST_RTOL = 1e-10
 X_RTOL = 1e-10
@@ -128,7 +130,8 @@ def test_chebyshev_lmax_matches_jax(kind):
 def test_solve_poisson_matches_jax():
     """The README quick start: banded operators, Chebyshev with Lanczos,
     explicit-inverse coarse solve; port constructors and converted operators."""
-    jx, jstats, jinfo = j_solve_poisson((16, 16, 16), num_levels=3, rtol=1e-8)
+    with jitted_jax_solves():
+        jx, jstats, jinfo = j_solve_poisson((16, 16, 16), num_levels=3, rtol=1e-8)
     assert int(jstats.niter) == 7
     x, stats, info = solve_poisson((16, 16, 16), num_levels=3, rtol=1e-8, device="cpu")
     _assert_same_solve(x, stats, jx, jstats)
@@ -153,7 +156,7 @@ def test_entry_config_matches_jax():
     stencils, Chebyshev with Gershgorin, dense LU, CG rtol 1e-5."""
     jprob, jsolver = __graft_entry__._build((16, 16, 16), 3, np.float64)
     jA = j_laplacian_const(jprob.mesh, np.float64)
-    jx, jstats = jsolver.solve(jsolver.setup(jA), jnp.asarray(jprob.b))
+    jx, jstats = jsolve(jsolver, jsolver.setup(jA), jnp.asarray(jprob.b))
 
     x, stats, info = solve_poisson_const((16, 16, 16), 3, device="cpu", dtype=torch.float64)
     _assert_same_solve(x, stats, jx, jstats)
@@ -211,12 +214,12 @@ def test_gmg_cycles_and_modes_match_jax(cycle, mode, flexible):
                              if mode == "preconditioner" else {}))
     prob = _conv_problem(jprob)
     if mode == "solver":
-        jx, jstats = jgmg.solve(jgmg.setup(jprob.A), jnp.asarray(jprob.b))
+        jx, jstats = jsolve(jgmg, jgmg.setup(jprob.A), jnp.asarray(jprob.b))
         x, stats = gmg.solve(gmg.setup(prob.A), prob.b)
     else:
         jcg = JCG(Pl=jgmg, rtol=1e-10, maxiter=40, flexible=flexible, lanczos=True)
         cg = CGSolver(Pl=gmg, rtol=1e-10, maxiter=40, flexible=flexible, lanczos=True)
-        jx, jstats = jcg.solve(jcg.setup(jprob.A), jnp.asarray(jprob.b))
+        jx, jstats = jsolve(jcg, jcg.setup(jprob.A), jnp.asarray(jprob.b))
         x, stats = cg.solve(cg.setup(prob.A), prob.b)
         k = stats.niter
         for key in ("alphas", "betas"):

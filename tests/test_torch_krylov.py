@@ -21,6 +21,7 @@ import torch
 import jax.numpy as jnp
 
 import gridapsolvers_tpu.linear as JL
+from jax_reference_jit import jsolve
 from gridapsolvers_tpu.algebra import DenseMatrix as JDense
 from gridapsolvers_tpu.algebra.ell import ell_from_scipy as j_ell_from_scipy
 from gridapsolvers_tpu.fem import poisson_problem as j_poisson_problem
@@ -54,6 +55,7 @@ from gridapsolvers_tpu_torch.multilevel import (
 from gridapsolvers_tpu_torch.utils import pytrees as pt
 
 torch.set_num_threads(1)
+
 
 HIST_RTOL = 1e-8
 HIST_ATOL = 1e-12  # of the initial residual: round-off once a solve is exact
@@ -113,7 +115,7 @@ def _assert_same_solve(x, stats, jx, jstats):
 
 def _solve_both(probs, solver, jsolver):
     jp, p = probs
-    jx, jstats = jsolver.solve(jsolver.setup(jp.A), jp.b)
+    jx, jstats = jsolve(jsolver, jsolver.setup(jp.A), jp.b)
     x, stats = solver.solve(solver.setup(p.A), p.b)
     _assert_same_solve(x, stats, jx, jstats)
     assert float(p.l2_error(x)) < 1e-6
@@ -136,7 +138,7 @@ def test_direct_solvers(poisson2d):
                             (TL.DenseCholeskySolver(), JL.DenseCholeskySolver()),
                             (TL.MatrixSolver(p.A), JL.MatrixSolver(jp.A))):
         x, _ = solver.solve(solver.setup(p.A), p.b)
-        jx, _ = jsolver.solve(jsolver.setup(jp.A), jp.b)
+        jx, _ = jsolve(jsolver, jsolver.setup(jp.A), jp.b)
         assert float(p.l2_error(x)) < 1e-10
         np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=0, atol=1e-12)
 
@@ -184,7 +186,7 @@ def test_gmres_nonsymmetric():
     kw = dict(m=40, rtol=1e-10, maxiter=400)
     solver, jsolver = TL.GMRESSolver(**kw), JL.GMRESSolver(**kw)
     x, stats = solver.solve(solver.setup(A), b)
-    jx, jstats = jsolver.solve(jsolver.setup(jA), jnp.asarray(b.numpy()))
+    jx, jstats = jsolve(jsolver, jsolver.setup(jA), jnp.asarray(b.numpy()))
     _assert_same_solve(x, stats, jx, jstats)
     assert float(np.linalg.norm(x.numpy() - x_true) / np.linalg.norm(x_true)) < 1e-6
 
@@ -208,14 +210,14 @@ def test_fixed_restart_stagnates_adaptive_converges():
     kw = dict(m=5, rtol=1e-6, maxiter=60)
     fixed, jfixed = TL.GMRESSolver(**kw), JL.GMRESSolver(**kw)
     x_f, st_f = fixed.solve(fixed.setup(A), b)
-    jx_f, jst_f = jfixed.solve(jfixed.setup(jA), jb)
+    jx_f, jst_f = jsolve(jfixed, jfixed.setup(jA), jb)
     _assert_same_solve(x_f, st_f, jx_f, jst_f)
     assert float(st_f.residuals[st_f.niter]) > 0.5 * float(st_f.residuals[0])
 
     kw = dict(m=5, m_max=64, rtol=1e-6, maxiter=200)
     grow, jgrow = TL.AdaptiveGMRESSolver(**kw), JL.AdaptiveGMRESSolver(**kw)
     x_g, st_g = grow.solve(grow.setup(A), b)
-    jx_g, jst_g = jgrow.solve(jgrow.setup(jA), jb)
+    jx_g, jst_g = jgrow.solve(jgrow.setup(jA), jb)  # host-side restarts: not jittable
     assert st_g.converged()
     _assert_same_solve(x_g, st_g, jx_g, jst_g)
     r = b - A.matvec(x_g)

@@ -241,6 +241,17 @@ from gridapsolvers_tpu_torch.nonlinear import NewtonSolver
 from gridapsolvers_tpu_torch.nonlinear.refinement import NewtonRefinement
 
 torch.set_num_threads(1)
+# the JAX package's GMRES solves under jax.jit (eagerly they dispatch op
+# by op, several times slower on the CPU); nothing else of its changes
+import gridapsolvers_tpu.linear as _jlin
+_solve, _compiled = _jlin.GMRESSolver.solve, {}
+def _jitted_solve(self, state, b, x0=None):
+    if x0 is not None:
+        return _solve(self, state, b, x0)
+    if _compiled.get(id(self), (None,))[0] is not self:   # one program a solver
+        _compiled[id(self)] = (self, jax.jit(lambda st, v: _solve(self, st, v)))
+    return _compiled[id(self)][1](state, b)
+_jlin.GMRESSolver.solve = _jitted_solve
 nc, nu, alpha = 8, 0.1, 1e3
 out = {}
 # tests/test_refinement.py's script at 8^2: each package's f32 Newton

@@ -17,6 +17,7 @@ import torch
 
 import jax.numpy as jnp
 
+from jax_reference_jit import jitted_jax_solves
 from gridapsolvers_tpu.algebra import DenseMatrix as JDenseMatrix
 from gridapsolvers_tpu.blocks import BlockTriangularSolver as JBlockTriangular
 from gridapsolvers_tpu.blocks import MatrixBlock as JMatrixBlock
@@ -61,6 +62,7 @@ from gridapsolvers_tpu_torch.nonlinear import (
 from gridapsolvers_tpu_torch.nonlinear.external import ScipyNonlinearSolver
 
 torch.set_num_threads(1)
+
 
 HIST_RTOL = 1e-8
 HIST_FLOOR = 1e-8   # of the initial residual
@@ -110,7 +112,8 @@ def _run(P, kind):
 
 @pytest.mark.parametrize("kind", ["plain", "picard"])
 def test_newton_equal_jax(kind):
-    jstats, jerr = _run(JAX, kind)
+    with jitted_jax_solves():
+        jstats, jerr = _run(JAX, kind)
     stats, err = _run(PORT, kind)
     k = stats.niter
     assert (k, stats.flag) == (int(jstats.niter), int(jstats.flag)) and stats.converged()
@@ -275,7 +278,8 @@ def test_staggered_nonlinear_and_block_fe_operator_newton():
     JAX's test's 1e-8, and the staggered solve equal to the monolithic one.
     A nonlinear stage with no initial guess raises."""
     stats, x, rnorm, (x2, x1), cache = _block_fe(PORT_S)
-    jstats, jx, _, (jx2, jx1), _ = _block_fe(JAX_S)
+    with jitted_jax_solves():
+        jstats, jx, _, (jx2, jx1), _ = _block_fe(JAX_S)
     assert (stats.niter, stats.flag) == (int(jstats.niter), int(jstats.flag))
     assert stats.converged() and rnorm < 1e-8 and cache == [None, None]
     _assert_same(x, jx)

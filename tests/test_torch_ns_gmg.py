@@ -21,8 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from jax_reference_jit import jitted_jax_solves
 from gridapsolvers_tpu.blocks import BlockTriangularSolver as JBlockTriangular
 from gridapsolvers_tpu.blocks import MatrixBlock as JMatrixBlock
 from gridapsolvers_tpu.blocks import NonlinearSystemBlock as JNonlinearBlock
@@ -52,6 +54,7 @@ from gridapsolvers_tpu_torch.patches import MaterializedVankaSmoother
 from gridapsolvers_tpu_torch.utils import pytrees as pt
 
 torch.set_num_threads(1)
+
 
 NU = 0.1
 ALPHA = 1e3
@@ -130,9 +133,9 @@ def test_gmg_update_apply_equal_jax(kind):
     st = gmg.setup(prob.jacobian(x0).block(0, 0), x0[0])
     st = gmg.update(st, prob.jacobian(x1).block(0, 0), x1[0])
     jst = jgmg.setup(jprob.jacobian(jx0).block(0, 0), jx0[0])
-    jst = jgmg.update(jst, jprob.jacobian(jx1).block(0, 0), jx1[0])
+    jst = jax.jit(jgmg.update)(jst, jprob.jacobian(jx1).block(0, 0), jx1[0])
     r, jr = _iterate(prob, 2)
-    _assert_close(gmg.apply(st, r[0]), jgmg.apply(jst, jr[0]), CYCLE_RTOL)
+    _assert_close(gmg.apply(st, r[0]), jax.jit(lambda v: jgmg.apply(jst, v))(jr[0]), CYCLE_RTOL)
     rng = np.random.default_rng(3)
     for m, jm in zip(st["mats"], jst["mats"]):
         v = [rng.normal(size=m.blocks[0][0].nrows) for _ in range(2)]
@@ -254,7 +257,8 @@ def test_convert_state_fgmres_equal_jax():
     jfst = jfg.setup(jA, jx)
     jfst["Pr"]["states"][0] = jst
     jr = jprob.residual(jx)
-    jdx, jstats = jfg.solve(jfst, tuple_neg(jr))
+    with jitted_jax_solves():
+        jdx, jstats = jfg.solve(jfst, tuple_neg(jr))
 
     fields = {f.name: getattr(jprob, f.name) for f in dataclasses.fields(jprob)}
     for k, v in fields.items():
@@ -344,7 +348,8 @@ def test_cavity_newton_re10_gmg():
     JAX's test asks), residual histories to rtol 1e-8 down to 1e-8 of the
     initial residual, the velocity to 1e-8 of its largest entry, and the
     clockwise primary vortex (u_x < -0.05 at the cavity centre)."""
-    jstats, ju, jux = _cavity_newton(False)
+    with jitted_jax_solves():
+        jstats, ju, jux = _cavity_newton(False)
     stats, u, ux = _cavity_newton(True)
     k = stats.niter
     assert (k, stats.flag) == (int(jstats.niter), int(jstats.flag))
@@ -389,7 +394,8 @@ def test_newton_augmented_equal_jax():
     """The augmented Newton run by both packages: equal iterations and flag
     (<= 4 from zero), residual histories to rtol 1e-8 down to 1e-8 of the
     initial residual, velocity errors to 1e-6 relative."""
-    jstats, jerr = _augmented_newton(False)
+    with jitted_jax_solves():
+        jstats, jerr = _augmented_newton(False)
     stats, err = _augmented_newton(True)
     k = stats.niter
     assert (k, stats.flag) == (int(jstats.niter), int(jstats.flag)) and k <= 4

@@ -30,6 +30,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from jax_reference_jit import jitted_jax_solves
 from gridapsolvers_tpu.fem import rt1 as j_rt1
 from gridapsolvers_tpu.models.darcy import solve_darcy as j_solve_darcy
 
@@ -39,6 +40,7 @@ from gridapsolvers_tpu_torch.models import solve_darcy
 from gridapsolvers_tpu_torch.ops import banded_stencil, ell_spmv
 
 torch.set_num_threads(1)
+
 
 EXACT_RTOL = 1e-14
 TRANSFER_RTOL = 1e-13
@@ -184,7 +186,8 @@ def _check_solve_darcy_rt1_equal_jax():
     banded_stencil.counts.reset()
     ell_spmv.counts.reset()
     x, stats, info = solve_darcy((8, 8), rtol=1e-10, order=2, num_levels=2, device="cpu")
-    jx, jstats, jinfo = j_solve_darcy((8, 8), rtol=1e-10, order=2, num_levels=2)
+    with jitted_jax_solves():
+        jx, jstats, jinfo = j_solve_darcy((8, 8), rtol=1e-10, order=2, num_levels=2)
     assert stats.niter == int(jstats.niter) and int(stats.flag) == int(jstats.flag)
     k = stats.niter
     np.testing.assert_allclose(stats.residuals.numpy()[: k + 1],

@@ -15,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from jax_reference_jit import jitted_jax_solves
 from gridapsolvers_tpu.fem.stokes import stokes_problem as j_stokes_problem
 from gridapsolvers_tpu.fem.stokes import velocity_gmg as j_velocity_gmg
 from gridapsolvers_tpu.models.stokes import solve_stokes as j_solve_stokes
@@ -25,6 +27,7 @@ from gridapsolvers_tpu_torch.fem.stokes import stokes_problem, velocity_gmg
 from gridapsolvers_tpu_torch.models import solve_stokes
 
 torch.set_num_threads(1)
+
 
 HIST_RTOL = 1e-8
 HIST_FLOOR = 1e-8   # of the initial residual: the inner CG's rtol
@@ -58,7 +61,8 @@ def _assert_same_solve(stats, jstats):
 
 def test_solve_stokes_cavity_equal_jax():
     """bc='cavity' at 8^2 cells, 2 levels: the reference's lid-driven cavity."""
-    jx, jstats, jinfo = j_solve_stokes((8, 8), num_levels=2, bc="cavity")
+    with jitted_jax_solves():
+        jx, jstats, jinfo = j_solve_stokes((8, 8), num_levels=2, bc="cavity")
     x, stats, info = solve_stokes((8, 8), num_levels=2, bc="cavity", device="cpu")
     assert stats.converged()
     _assert_same_solve(stats, jstats)
@@ -78,6 +82,6 @@ def test_velocity_gmg_vcycle_equal_jax(ncells, levels):
     rng = np.random.default_rng(7)
     r = tuple(rng.normal(size=v.shape[0]) for v in prob.b[0])
     z = gmg.apply(state, tuple(torch.from_numpy(v) for v in r))
-    jz = jgmg.apply(jstate, tuple(jnp.asarray(v) for v in r))
+    jz = jax.jit(lambda v: jgmg.apply(jstate, v))(tuple(jnp.asarray(v) for v in r))
     _assert_close(z, jz, VCYCLE_RTOL)
     assert all(t.dtype == torch.float64 for t in z)

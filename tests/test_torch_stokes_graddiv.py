@@ -16,6 +16,7 @@ import torch
 
 import jax.numpy as jnp
 
+from jax_reference_jit import jitted_jax_solves
 from gridapsolvers_tpu.fem.stokes import stokes_problem as j_stokes_problem
 from gridapsolvers_tpu.fem.stokes import velocity_gmg as j_velocity_gmg
 from gridapsolvers_tpu.models.stokes import solve_stokes as j_solve_stokes
@@ -27,6 +28,7 @@ from gridapsolvers_tpu_torch.models import solve_stokes
 from gridapsolvers_tpu_torch.ops import banded_stencil, ell_spmv
 
 torch.set_num_threads(1)
+
 
 ALPHA = 1e3
 OP_RTOL = 1e-12
@@ -168,7 +170,8 @@ def test_augmented_vcycle_block_equals_flat(cheby):
 
 @pytest.fixture(scope="module")
 def jax_solve():
-    return j_solve_stokes((8, 8), num_levels=2, graddiv_alpha=ALPHA)
+    with jitted_jax_solves():
+        return j_solve_stokes((8, 8), num_levels=2, graddiv_alpha=ALPHA)
 
 
 def test_solve_stokes_graddiv_equal_jax(jax_solve):
@@ -213,14 +216,14 @@ def test_graddiv_3d():
 
 
 def test_not_yet_ported_pieces_raise():
-    """What the port leaves for later: the GenEO Schwarz solvers, the
-    H(curl) and MHD applications, AMR and the distributed operators. (The
-    colored Gauss-Seidel smoothers and the FE-space projection transfers,
-    once checked here, are ported: tests/test_torch_multilevel_spaces.py.)"""
+    """What the port leaves for later: AMR and the distributed operators.
+    (The colored Gauss-Seidel smoothers and the FE-space projection
+    transfers, once checked here, are ported: tests/test_torch_multilevel_
+    spaces.py; the GenEO Schwarz solvers and the H(curl) and MHD
+    applications: tests/test_torch_{schwarz,hcurl,mhd}.py.)"""
     from gridapsolvers_tpu_torch.algebra import to_scipy
 
-    for mod in ("linear.schwarz", "fem.hcurl", "fem.mhd", "multilevel.adaptive",
-                "multilevel.forest"):
+    for mod in ("multilevel.adaptive", "multilevel.forest"):
         with pytest.raises(ModuleNotFoundError):
             __import__(f"gridapsolvers_tpu_torch.{mod}")
 
