@@ -7,8 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 It builds the three hand-written kernels from `gridapsolvers_tpu_torch/csrc/`
 (nvcc, sm_90a, all three at once) and drives the port's Poisson, Stokes,
-Navier-Stokes, Darcy, elasticity, GenEO Schwarz, H(curl) and MHD paths
-through their public entry points, in phases that each print one line:
+Navier-Stokes, Darcy, elasticity, GenEO Schwarz, H(curl), MHD and AMR
+paths through their public entry points, in phases that each print one line:
 
   1 device   card name and power limit (nvidia-smi), TF32 off
   2 build    the kernels, with build seconds and ptxas register counts
@@ -89,6 +89,17 @@ through their public entry points, in phases that each print one line:
              under FGMRES(30) (K3 on the 6 x 6 blocks of every level),
              counted by operand shape; then each path's operators against
              their plain versions
+  6P path P  block-structured AMR: P2, the tests' AMR solves at 16^2 and
+             12^3 (adaptive_solve, composite_solve with kappa,
+             adaptive_solve_scattered, forest_solve with Jacobi and FAC,
+             a partial-overlap seam; card = CPU); P1, the two-bump 3D
+             problem on a 128^3 base, two rounds of solve -> estimate ->
+             mark_boxes -> refine, then the counted set-up and solve on the
+             three-level forest (flexible CG + ForestPreconditioner: a GMG
+             V-cycle per patch, K2's box kernel on every patch operator and
+             GMG level) in f64, its energy error on the 512^3 frame against
+             the coarse-only solve's; then K2 on its base composite, largest
+             patch and base GMG level-0 operators against the plain version
   7 K3 ops   K3 on path C's own 128^3 level operators, P and R (f32, bf16
              values, one f64 level) against its plain version
   8 times    per-apply kernel, plain, library and bound times (K1
@@ -98,8 +109,9 @@ through their public entry points, in phases that each print one line:
              in full; K2 and K3 on path G's 512^2 operators; K3 on path H's
              512^2 operators and K2 on its banded blocks; K3 on path I1's
              level-0 Jacobian blocks; K2 and K3 on paths J, K, M, N and O's
-             operators, cold and warm, beside cuSPARSE int32 and int64), K3's lanes
-             sweep, and each 128^3 and 512^2 solve
+             operators, cold and warm, beside cuSPARSE int32 and int64; K2
+             on path P1's three operators likewise), K3's lanes sweep, and
+             each 128^3 and 512^2 solve
 
 Each path's 128^3 run starts with every launch count at 0 and is read
 right after, so the counts show that every operator apply went through
@@ -111,8 +123,8 @@ raises, so a failure exits non-zero. The
 line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero before
 printing any result. `--profile DIR` adds a torch.profiler trace of one
-path C, G, H, J1 and Ka solve each and of path I1's Newton run (kernel
-tables in DIR, summary lines printed).
+path C, G, H, J1, Ka, M1, N1, O1 and P1 solve each and of path I1's
+Newton run (kernel tables in DIR, summary lines printed).
 """
 from __future__ import annotations
 
@@ -149,6 +161,9 @@ import gridapsolvers_tpu_torch.fem.navier_stokes as ns_mod
 import gridapsolvers_tpu_torch.fem.rt1 as rt1_mod
 import gridapsolvers_tpu_torch.fem.stokes as stokes_mod
 import gridapsolvers_tpu_torch.linear.schwarz as schwarz_mod
+import gridapsolvers_tpu_torch.linear.smoothers as smoothers_mod
+import gridapsolvers_tpu_torch.multilevel.adaptive as adaptive_mod
+import gridapsolvers_tpu_torch.multilevel.forest as forest_mod
 import gridapsolvers_tpu_torch.multilevel.transfer as transfer_mod
 import gridapsolvers_tpu_torch.patches.smoothers as psm_mod
 import gridapsolvers_tpu_torch.patches.topology as topology_mod
@@ -378,6 +393,26 @@ O_RTOL, O_MAXITER = 1e-6, 40
 O_ITS = (5, 9)
 O_RES_REL = 1e-5
 O2_TOL = 1e-8
+# path P: block-structured AMR. P1: the two-bump 3D problem of
+# tests/test_forest.py:156-200 (C3 = 300, centres (0.25,)^3 and (0.75,)^3,
+# -lap u3 = f3 on the unit cube) on a NC_P^3 base; P_ROUNDS rounds of solve
+# -> estimate_cells on each finest patch -> mark_boxes(theta 0.3 of the
+# front's largest estimate, max_boxes 8, align 8) -> refine, every solve
+# flexible CG (rtol P_RTOL) + ForestPreconditioner(num_levels=P_LEVELS) in
+# f64; the counted run is the set-up and solve on the final forest. The FAC
+# preconditioner is not h-robust: scripts/amr_sweep.py reads 48, 52, 86, 96
+# its at bases 32^3-96^3, and the band below was set after the card's first
+# 128^3 run read 152. P2 (card = CPU): the tests' AMR drivers and solves at
+# 16^2 and 12^3, x within P2_TOL of max|x|
+NC_P = 128
+P_ROUNDS = 2
+P_THETA, P_MAX_BOXES, P_ALIGN = 0.3, 8, 8
+P_LEVELS = 5
+P_RTOL, P_MAXITER = 1e-8, 400
+P_ITS = (120, 190)
+P_C3 = 300.0
+P_CENTRES = ((0.25, 0.25, 0.25), (0.75, 0.75, 0.75))
+P2_TOL = 1e-8
 KERNELS = ("const_stencil", "banded_stencil", "ell_spmv")
 COUNTS = {"K1": k1.counts, "K2": k2.counts, "K3": k3.counts}
 
@@ -2063,6 +2098,377 @@ def paths_mno(dev, opts, card, elapsed, launches, check_k2, check_ell, lines) ->
     return {"ops": ops, "op_launches": op_launches, "shapes": shapes, "t_solve": t_solve}
 
 
+# ---- path P: block-structured AMR -----------------------------------------
+
+
+def p_f3(p) -> np.ndarray:
+    """-lap u3 for path P1's exact solution u3 = sum over P_CENTRES of
+    exp(-P_C3 |x - c|^2) (host, (n, 3) points)."""
+    out = 0.0
+    for c in P_CENTRES:
+        r2 = sum((p[:, d] - c[d]) ** 2 for d in range(3))
+        out = out + (6 * P_C3 - 4 * P_C3 * P_C3 * r2) * np.exp(-P_C3 * r2)
+    return out
+
+
+def p_u3_grid(ncells: int, dtype, device) -> torch.Tensor:
+    """u3 (see p_f3) at the vertices of the uniform ncells^3 grid of the
+    unit cube, on the device (each bump is a product of three 1D factors)."""
+    x = torch.from_numpy(np.linspace(0.0, 1.0, ncells + 1)).to(device, dtype)
+    out = 0.0
+    for c in P_CENTRES:
+        g = [torch.exp(-P_C3 * (x - c[d]) ** 2) for d in range(3)]
+        out = out + g[0][:, None, None] * g[1][None, :, None] * g[2][None, None, :]
+    return out
+
+
+def q1_energy(e: torch.Tensor, h) -> float:
+    """eᵀ A e for the Q1 stiffness A of a uniform vertex grid of spacings h
+    (no boundary rows eliminated), from the element quadratic forms: for
+    each axis d, (1/h_d) Π_{o≠d} (h_o/6) Σ_cells Σ_{a,b} Π_o m[a_o, b_o]
+    w[c+a] w[c+b], with w the differences of e along d and m = [[2, 1],
+    [1, 2]]. On e's device, without assembling A (at 513^3 its bands would
+    take 29 GB)."""
+    dim, total = e.ndim, 0.0
+    for d in range(dim):
+        w = torch.diff(e, dim=d)
+        others = [o for o in range(dim) if o != d]
+        scale = 1.0 / h[d]
+        for o in others:
+            scale *= h[o] / 6.0
+        acc = 0.0
+        for a in itertools.product((0, 1), repeat=len(others)):
+            wa = w
+            for o, ao in zip(others, a):
+                wa = wa.narrow(o, ao, w.shape[o] - 1)
+            for b in itertools.product((0, 1), repeat=len(others)):
+                coef = 1
+                wb = w
+                for o, ao, bo in zip(others, a, b):
+                    coef *= 2 if ao == bo else 1
+                    wb = wb.narrow(o, bo, w.shape[o] - 1)
+                acc += coef * float(torch.sum(wa * wb))
+        total += scale * acc
+    return total
+
+
+P_STEPS = (
+    ("host assembly", asm_q1, "q1_var_bands_host"),
+    ("patch GMG", forest_mod.ForestPreconditioner, "_patch_gmg"),
+    ("Gershgorin bounds", smoothers_mod, "gershgorin_dinv_a_lmax"),
+    ("LU", DenseLUSolver, "setup"),
+)
+
+
+def build_p(hier, dtype, device) -> dict:
+    """Path P's composite system and solver on a forest, set up: the
+    forest's composite operator and load (`forest_composite_system`),
+    flexible CG rtol P_RTOL <= P_MAXITER + ForestPreconditioner(hier,
+    num_levels=P_LEVELS). Returns a dict with them, the set-up seconds by
+    step (StepTimes over P_STEPS) and each patch's GMG set-up seconds."""
+    cuda = torch.device(device).type == "cuda"
+    per_patch = []
+    orig = forest_mod.ForestPreconditioner.__dict__["_patch_gmg"]
+
+    def timed(self, *args, **kwargs):
+        if cuda:
+            fence()
+        t0 = time.perf_counter()
+        out = orig(self, *args, **kwargs)
+        if cuda:
+            fence()
+        per_patch.append(time.perf_counter() - t0)
+        return out
+
+    forest_mod.ForestPreconditioner._patch_gmg = timed
+    try:
+        with StepTimes(device, P_STEPS) as steps:
+            t0 = time.perf_counter()
+            op, b = forest_mod.forest_composite_system(hier, p_f3, dtype=dtype, device=device)
+            solver = CGSolver(Pl=forest_mod.ForestPreconditioner(hier, num_levels=P_LEVELS),
+                              rtol=P_RTOL, maxiter=P_MAXITER, flexible=True)
+            state = solver.setup(op)
+            if cuda:
+                fence()
+            total = time.perf_counter() - t0
+    finally:
+        forest_mod.ForestPreconditioner._patch_gmg = orig
+    secs = dict(steps.secs)
+    secs["other"] = total - sum(secs.values())
+    return {"hier": hier, "op": op, "b": b, "solver": solver, "state": state, "secs": secs,
+            "setup_s": total, "patch_gmg_s": per_patch}
+
+
+def solve_p(run) -> dict:
+    """Solve a set-up path P run: adds x, the stats, the solve seconds and
+    the per-patch grids (`us`, slave rings filled in)."""
+    t0 = time.perf_counter()
+    run["x"], run["stats"] = run["solver"].solve(run["state"], run["b"])
+    if run["b"][0].device.type == "cuda":
+        fence()
+    run["solve_s"] = time.perf_counter() - t0
+    run["us"] = run["op"]._extend(run["x"])
+    return run
+
+
+def setup_p(nc, dtype, device, rounds=P_ROUNDS) -> dict:
+    """Path P's adaptive loop on an nc^3 base: `rounds` rounds of build_p
+    -> solve_p -> estimate_cells on every finest patch -> mark_boxes (one
+    threshold, P_THETA of the front's largest estimate; max_boxes, align)
+    -> refine. Returns the final forest (not yet set up), the coarse-only
+    solution (round 0's base grid) and each round's iterations, boxes and
+    seconds (set-up, solve, marker)."""
+    hier = forest_mod.forest_hierarchy(
+        CartesianMesh((nc,) * 3, (0.0, 1.0, 0.0, 1.0, 0.0, 1.0)))
+    rounds_info, u_coarse = [], None
+    for _ in range(rounds):
+        run = solve_p(build_p(hier, dtype, device))
+        if u_coarse is None:
+            u_coarse = run["us"][0]
+        t0 = time.perf_counter()
+        ests = forest_mod.finest_estimates(hier, run["us"])
+        cut = P_THETA * max(float(e.max()) for e in ests)
+        boxes = [forest_mod.mark_boxes(e, thresh=cut, max_boxes=P_MAX_BOXES, align=P_ALIGN)
+                 for e in ests]
+        marker_s = time.perf_counter() - t0
+        assert any(boxes), "path P: nothing marked"
+        rounds_info.append({"its": run["stats"].niter, "flag": int(run["stats"].flag),
+                            "patches": len(run["op"].shapes), "boxes": boxes,
+                            "setup_s": run["setup_s"], "solve_s": run["solve_s"],
+                            "marker_s": marker_s})
+        hier = hier.refine(boxes)
+        del run
+    return {"hier": hier, "u_coarse": u_coarse, "rounds": rounds_info}
+
+
+def p_launches(run) -> dict:
+    """K2 launches of one path P run from `forest_composite_system` to the
+    end of the solve, by operand shape (forest.py, linear/cg.py,
+    linear/gmg.py, linear/smoothers.py): each patch's load applies its
+    mass stencil once; flexible CG applies the composite operator (one
+    launch a patch) once at the start and once an iteration, and the
+    preconditioner n + 1 times: one V-cycle a patch, which applies each of
+    its smoothing levels 2·3 + 1 times (Chebyshev(3) before and after, the
+    correction residual) and its coarsest level once. The Gershgorin bounds
+    and the coarse LUs launch nothing. Returns (by shape, by operator:
+    "patch k load" (its mass stencil), "patch k" (its composite block) and
+    "patch k level l" (its GMG levels))."""
+    n = run["stats"].niter
+    by_shape, by_op = collections.Counter(), {}
+    for k, shape in enumerate(run["op"].shapes):
+        by_op[f"patch {k} load"] = 1
+        by_op[f"patch {k}"] = n + 1
+        by_shape[(27,) + shape] += 1 + (n + 1)
+    for k, (gmg, gst) in enumerate(run["state"]["Pl"]["gmgs"]):
+        mats = gst["mats"]
+        for l, A in enumerate(mats):
+            by_op[f"patch {k} level {l}"] = (n + 1) * (2 * 3 + 1 if l < len(mats) - 1 else 1)
+            by_shape[(27,) + A.grid_shape] += by_op[f"patch {k} level {l}"]
+    return dict(by_shape), by_op
+
+
+class SolveLog:
+    """(iterations, flag) of every CGSolver solve while active, in order:
+    the drivers (`adaptive_solve`, `adaptive_solve_scattered`) return no
+    stats of their own."""
+
+    def __enter__(self):
+        self.stats = []
+        self._orig = CGSolver.__dict__["solve"]
+        orig, log = self._orig, self.stats
+
+        def solve(solver, state, b, x0=None):
+            x, st = orig(solver, state, b, x0)
+            log.append((st.niter, int(st.flag)))
+            return x, st
+
+        CGSolver.solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        CGSolver.solve = self._orig
+
+
+def p2_cases(device) -> dict:
+    """Path P2 on `device`: the tests' AMR solves at their sizes, each an
+    entry (x as a flat tensor, [(its, flag), ...], boxes or None)."""
+    def f2(p):
+        out = 0.0
+        for b in ((0.25, 0.25), (0.75, 0.75)):
+            r2 = (p[:, 0] - b[0]) ** 2 + (p[:, 1] - b[1]) ** 2
+            out = out + (4 * 200.0 - 4 * 200.0 ** 2 * r2) * np.exp(-200.0 * r2)
+        return out
+
+    def f1(p):
+        r2 = (p[:, 0] - 0.7) ** 2 + (p[:, 1] - 0.7) ** 2
+        return (4 * 200.0 - 4 * 200.0 ** 2 * r2) * np.exp(-200.0 * r2)
+
+    def kap(p):
+        return 1.0 + 10.0 * (p[:, 0] > 0.5)
+
+    def flat(us):
+        return torch.cat([u.reshape(-1) for u in us])
+
+    base2 = CartesianMesh((16, 16), (0.0, 1.0, 0.0, 1.0))
+    base3 = CartesianMesh((12, 12, 12), (0.0, 1.0, 0.0, 1.0, 0.0, 1.0))
+    f64 = torch.float64
+    out = {}
+    with SolveLog() as log:
+        hier, us = adaptive_mod.adaptive_solve(base2, f1, num_levels=3, theta=0.25,
+                                               device=device)
+        out["adaptive_solve 16^2 3 levels"] = (
+            flat(us), list(log.stats), [(lv.lo, lv.hi) for lv in hier.levels])
+        log.stats.clear()
+        hier = adaptive_mod.adaptive_hierarchy(base2).refine_box((8, 8), (16, 16))
+        us, st = adaptive_mod.composite_solve(hier, f1, kappa=kap, device=device)
+        out["composite_solve kappa"] = (flat(us), list(log.stats), None)
+        log.stats.clear()
+        for tag, base, f, theta in (("16^2", base2, f2, 0.25), ("12^3", base3, p_f3, 0.3)):
+            hier, us = forest_mod.adaptive_solve_scattered(base, f, num_rounds=1, theta=theta,
+                                                           device=device)
+            out[f"adaptive_solve_scattered {tag}"] = (
+                flat(us), list(log.stats),
+                [[(p_.lo, p_.hi) for p_ in lv] for lv in hier.levels])
+            log.stats.clear()
+        two = forest_mod.forest_hierarchy(base2).refine([[((2, 2), (8, 8)), ((10, 10), (14, 14))]])
+        for gmg_base in (False, True):
+            us, st = forest_mod.forest_solve(two, f2, rtol=1e-8, gmg_base=gmg_base, dtype=f64,
+                                             device=device)
+            out[f"forest_solve {'FAC' if gmg_base else 'Jacobi'}"] = (
+                flat(us), list(log.stats), None)
+            log.stats.clear()
+        seam = forest_mod.forest_hierarchy(base2).refine([[((2, 2), (8, 8)), ((8, 2), (12, 6))]])
+        us, st = forest_mod.forest_solve(seam, f2, rtol=1e-11, device=device)
+        out["partial-overlap seam"] = (flat(us), list(log.stats), None)
+    return out
+
+
+def paths_p(dev, opts, card, elapsed, launches, check_k2, lines) -> dict:
+    """Path P on `dev` (main's phase 6P), as paths_mno: P2 card = CPU, then
+    P1's adaptive loop and its counted final run, each check raising; the
+    kernel checks draw vectors from a generator of their own. Returns what
+    phase 8 times and reports: the timed operators (`ops`), each one's
+    launches in the counted run (`op_launches`), the launches by operand
+    shape and the solve time."""
+    f32, f64 = torch.float32, torch.float64
+    rng = np.random.default_rng(11)
+
+    def vec(n, dtype):
+        return torch.from_numpy(rng.normal(size=n)).to(dev, dtype)
+
+    def by_shape(counts):
+        return ", ".join(f"{'x'.join(map(str, k))} {v}" for k, v in sorted(counts.items()))
+
+    # ---- P2: card = CPU at the tests' sizes
+    card_runs, cpu_runs = p2_cases(dev), p2_cases("cpu")
+    small = []
+    for tag, (xc, sc, bc) in card_runs.items():
+        xh, sh, bh = cpu_runs[tag]
+        assert sc == sh, f"P2 {tag}: (its, flag) card {sc} CPU {sh}"
+        assert bc == bh, f"P2 {tag}: boxes card {bc} CPU {bh}"
+        e = relerr(xc.cpu(), xh)
+        assert e <= P2_TOL, f"P2 {tag}: card against CPU x {e:.2e} > {P2_TOL:g}"
+        small.append(f"{tag} its {'+'.join(str(i) for i, _ in sc)} = CPU, flags "
+                     f"{sorted({f for _, f in sc})}, x rel diff {e:.1e}")
+    del card_runs, cpu_runs
+
+    # ---- P1: the adaptive loop, then the counted run on the final forest
+    t0 = time.perf_counter()
+    loop = setup_p(NC_P, f64, dev)
+    loop_s = time.perf_counter() - t0
+    hier = loop["hier"]
+    assert hier.num_levels == P_ROUNDS + 1 and len(hier.levels[1]) >= 2, [
+        [(q.lo, q.hi) for q in lv] for lv in hier.levels]
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    with SyncCount() as syncs:
+        run = build_p(hier, f64, dev)
+        syncs_p = [syncs.read()]
+        solve_p(run)
+        syncs_p.append(syncs.read() - syncs_p[0])
+    launches["P1"] = read_counts()
+    shapes_p = dict(k2.counts.shapes)
+    mem_p = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 30
+    op, b, x, st = run["op"], run["b"], run["x"], run["stats"]
+    want_p, per_op = p_launches(run)
+    assert shapes_p == want_p, (shapes_p, want_p)
+    assert launches["P1"]["K1"] == launches["P1"]["K3"] == 0, launches["P1"]
+    assert st.converged() and P_ITS[0] <= st.niter <= P_ITS[1], (st.niter, st.flag)
+    assert [tuple(t.shape) for t in x] == [(int(np.prod(s)),) for s in op.shapes]
+    assert all(t.dtype == f64 and bool(torch.isfinite(t).all()) for t in x)
+    rel_p = float(pt.norm(pt.sub(b, op.matvec(x))) / pt.norm(b))
+    assert rel_p <= 10 * P_RTOL, rel_p
+    t_solve = median_ms(lambda: run["solver"].solve(run["state"], b), runs=3, warmup=0,
+                        spin=False)
+    if opts.profile is not None:
+        summary = profile_solve(lambda: run["solver"].solve(run["state"], b), opts.profile,
+                                "path_P1")
+        print(f"[profile] path P1 solve, {card}: {summary} {elapsed()}", flush=True)
+    gmgs = run["state"]["Pl"]["gmgs"]
+    patch_desc = "; ".join(
+        f"patch {k} (level {lv}, {'x'.join(map(str, np.array(s) - 1))} cells"
+        + (f", box {lo}-{hi} of patch {par}" if par >= 0 else "")
+        + f"): GMG {len(gst['mats'])} levels, coarsest {gst['mats'][-1].n} dofs "
+        f"({'x'.join(map(str, gst['mats'][-1].grid_shape))}), set-up "
+        f"{run['patch_gmg_s'][k]:.2f} s"
+        for k, ((lv, par, lo, hi), s, (_, gst)) in enumerate(zip(op.meta, op.shapes, gmgs)))
+    # the energy error on the uniformly refined frame, against the
+    # coarse-only solve's (tests/test_forest.py:156-200)
+    field, frame = forest_mod.forest_on_finest(hier, run["us"])
+    u_ex = p_u3_grid(frame.ncells[0], f64, dev)
+    err_amr = q1_energy(field - u_ex, frame.h)
+    del field
+    coarse = loop["u_coarse"]
+    for _ in range(P_ROUNDS):
+        coarse = transfer_mod.prolong_slices(coarse)
+    err_coarse = q1_energy(coarse - u_ex, frame.h)
+    del coarse, u_ex
+    assert err_amr < 0.5 * err_coarse, (err_amr, err_coarse)
+    rounds = "; ".join(
+        f"round {i} ({r['patches']} patches): {r['its']} its, flag {r['flag']}, set-up "
+        f"{r['setup_s']:.2f} s, solve {r['solve_s']:.2f} s, marker {r['marker_s']:.2f} s, boxes "
+        f"{r['boxes']}" for i, r in enumerate(loop["rounds"]))
+    n_dofs = sum(int(np.prod(s)) for s in op.shapes)
+    print(f"[6P path P] block-structured AMR: P2 card = CPU: " + "; ".join(small)
+          + f" | P1 {NC_P}^3 base, {P_ROUNDS} rounds (theta {P_THETA}, max_boxes "
+          f"{P_MAX_BOXES}, align {P_ALIGN}; flexible CG rtol {P_RTOL:g} + ForestPreconditioner("
+          f"num_levels={P_LEVELS}), f64), loop {loop_s:.1f} s: {rounds} | counted final run, "
+          f"{hier.num_levels} levels, patches per level {[len(lv) for lv in hier.levels]}, "
+          f"{n_dofs} grid dofs: {st.niter} its (band {P_ITS}), flag {st.flag}, residuals "
+          + " ".join(f"{v:.3e}" for v in st.residuals.cpu().numpy()[: st.niter + 1])
+          + f"; true relative residual {rel_p:.3e} (<= {10 * P_RTOL:g}); energy error on the "
+          f"{frame.ncells[0]}^3 frame {err_amr:.4e} against the coarse-only {err_coarse:.4e} "
+          f"(ratio {err_amr / err_coarse:.4f} < 0.5); {patch_desc}; set-up "
+          f"{run['setup_s']:.2f} s by step: " + ", ".join(f"{k_} {v:.2f}" for k_, v in
+                                                          run["secs"].items())
+          + f"; solve {run['solve_s']:.3f} s (median of 3 more {t_solve / 1e3:.3f} s); host "
+          f"syncs measured: set-up {syncs_p[0]}, solve {syncs_p[1]}; peak device memory "
+          f"{mem_p:.2f} GiB over what earlier paths hold; K2 launches by shape equal to "
+          f"p_launches: {by_shape(shapes_p)} (every one on the box kernel); K1 0, K3 0, plain 0 "
+          f"{elapsed()}", flush=True)
+    # the three operators of phases 6P and 8: the base composite operator,
+    # the largest refined patch's, and the base patch's level-0 GMG operator
+    big = max(range(1, len(op.shapes)), key=lambda k: int(np.prod(op.shapes[k])))
+    named = {"P K2 base composite": (op.ops[0], per_op["patch 0"]),
+             f"P K2 patch {big} composite": (op.ops[big], per_op[f"patch {big}"]),
+             "P K2 base GMG level 0": (gmgs[0][1]["mats"][0], per_op["patch 0 level 0"])}
+    for key, (A64, _) in named.items():
+        for dt, tol in ((f64, F64_TOL), (f32, F32_TOL)):
+            A = A64.astype(dt)
+            check_k2(f"[{key[5:]} {'x'.join(map(str, A.grid_shape))}]{str(dt)[6:]}", A,
+                     vec(A.n, dt), tol, True)
+    print(f"[6P kernels] {len(lines)} cases on the path's operators within f32 {F32_TOL:.0e} / "
+          f"f64 {F64_TOL:.0e}: " + ", ".join(lines) + f" {elapsed()}", flush=True)
+    lines.clear()
+    ops = {key: A for key, (A, _) in named.items()}
+    op_launches = {key: n_ for key, (_, n_) in named.items()}
+    del run, loop, x, b, gmgs
+    torch.cuda.empty_cache()
+    return {"ops": ops, "op_launches": op_launches, "shapes": shapes_p, "t_solve": t_solve}
+
+
 def ell_csr(A: ELLMatrix, index=torch.int32) -> torch.Tensor:
     """A's real entries (slots within each row's length) as a torch CSR
     tensor on its device: the cuSPARSE yardstick, never called by the
@@ -3210,6 +3616,9 @@ def main() -> None:
     # ---- 6M, 6N, 6O paths M, N and O: GenEO Schwarz, H(curl) + AMS, MHD
     mno = paths_mno(dev, opts, card, elapsed, launches, check_k2, check_ell, lines)
 
+    # ---- 6P path P: block-structured AMR
+    amr = paths_p(dev, opts, card, elapsed, launches, check_k2, lines)
+
     # ---- 7 K3 on path C's own operators ---------------------------------
     ops = ([(f"level {i}", m) for i, m in enumerate(amg["mats"]) if i > 0]
            + [(f"P{i}", m) for i, m in enumerate(amg["P"])]
@@ -3457,8 +3866,8 @@ def main() -> None:
     # CSR with int32 and int64 indices on the same real entries (which also
     # cross-checks y) and the bytes bound
     jk_keys = {}
-    jk_ops = {**jk["jk_ops"], **mno["ops"]}
-    j_block_launches = {**jk["j_block_launches"], **mno["op_launches"]}
+    jk_ops = {**jk["jk_ops"], **mno["ops"], **amr["ops"]}
+    j_block_launches = {**jk["j_block_launches"], **mno["op_launches"], **amr["op_launches"]}
     for key, A in jk_ops.items():
         xj = vec(A.shape[1], f64)
         if isinstance(A, StencilMatrix):
@@ -3584,7 +3993,8 @@ def main() -> None:
                       f"plain {t[key + ' plain']:.4f}, cuSPARSE int32 {t[key + ' library']:.4f} "
                       f"(int64 {t[key + ' library int64']:.4f}), bound {bound[key]:.4f}, "
                       f"launches {j_block_launches[key]}, kernel vs cuSPARSE y {e:.1e}"
-                      for key, (desc, e) in jk_keys.items() if key not in mno["ops"])
+                      for key, (desc, e) in jk_keys.items()
+                      if key not in mno["ops"] and key not in amr["ops"])
           + f" | solve only, median of 3: J1 {jk['t_solve_j']:.2f} ms, Ka {jk['t_solve_k']:.2f} ms "
           f"{elapsed()}", flush=True)
     print(f"[8 M N O] {card} | paths M1 ({NC_M[0]}x{NC_M[1]}), N1 ({NC_N}^3) and O1 ({NC_O}^3) "
@@ -3597,6 +4007,14 @@ def main() -> None:
           + " | solve only, median of 3: " + ", ".join(f"{k} {v:.2f} ms"
                                                         for k, v in mno["t_solve"].items())
           + f" {elapsed()}", flush=True)
+    print(f"[8 P] {card} | path P1's operators ({NC_P}^3 base), f64, median of {TIMING_RUNS} "
+          f"(CUDA events), ms per apply: "
+          + "; ".join(f"{key} ({desc}) kernel {t[key]:.4f} (cold {t[key + ' cold']:.4f}), "
+                      f"plain {t[key + ' plain']:.4f}, cuSPARSE int32 {t[key + ' library']:.4f} "
+                      f"(int64 {t[key + ' library int64']:.4f}), bound {bound[key]:.4f}, "
+                      f"launches {j_block_launches[key]}, kernel vs cuSPARSE y {e:.1e}"
+                      for key, (desc, e) in jk_keys.items() if key in amr["ops"])
+          + f" | P1 solve only, median of 3: {amr['t_solve']:.2f} ms {elapsed()}", flush=True)
     if opts.profile is not None:
         summary = profile_solve(lambda: cgC.solve(stateC, probC.b), opts.profile, "path_c")
         print(f"[profile] path C solve, {card}: {summary} {elapsed()}", flush=True)
@@ -3691,6 +4109,9 @@ def main() -> None:
     k2_row["schwarz"] = {"M1 " + key.split(" K2 ")[1]: jk_entry(key) for key in jk_keys
                          if key.startswith("M K2")}
     k2_row["schwarz"]["M1 launches_by_shape"] = by_shape(mno["shapes"]["M1"])
+    k2_row["amr"] = {"P1 " + key.split(" K2 ")[1]: jk_entry(key) for key in jk_keys
+                     if key.startswith("P K2")}
+    k2_row["amr"]["P1 launches_by_shape"] = by_shape(amr["shapes"])
     for name, path in (("hcurl", "N"), ("mhd", "O")):
         k3_row[name] = {f"{path}1 " + key.split(" K3 ")[1]: jk_entry(key) for key in jk_keys
                         if key.startswith(f"{path} K3")}

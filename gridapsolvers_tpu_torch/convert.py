@@ -26,6 +26,8 @@ from .fem.rt1 import DarcyRT1Problem, RT1Prolongation, RT1Restriction
 from .fem.poisson import PoissonProblem
 from .fem.stokes import StokesProblem
 from .interfaces.nullspaces import NullSpace
+from .multilevel.adaptive import AdaptiveHierarchy, AdaptiveLevel, CompositeOperator
+from .multilevel.forest import ForestCompositeOperator, ForestHierarchy, Patch
 from .multilevel.multifield import MultiFieldTransfer
 from .multilevel.transfer import StructuredProlongation, StructuredRestriction, TensorTransfer
 from .patches.topology import PatchTopology
@@ -544,3 +546,53 @@ def mhd_problem(ncells, A: dict, b, free, *, device=None, dtype=None) -> MHDProb
     return MHDProblem(ncells=tuple(int(n) for n in ncells),
                       A=operator(A, device=device, dtype=dtype), b=_vec(tuple(b), device, dtype),
                       free=_vec(tuple(free), device, dtype))
+
+
+def _ints(t):
+    return None if t is None else tuple(int(v) for v in t)
+
+
+def _mesh(spec: dict) -> CartesianMesh:
+    return CartesianMesh(_ints(spec["ncells"]), tuple(float(v) for v in spec["domain"]))
+
+
+def adaptive_hierarchy(levels: Sequence[dict]) -> AdaptiveHierarchy:
+    """`AdaptiveHierarchy` from its levels, coarsest first, each
+    {"ncells", "domain", "lo", "hi"} (lo and hi None for the base)."""
+    return AdaptiveHierarchy([AdaptiveLevel(_mesh(lv), _ints(lv["lo"]), _ints(lv["hi"]))
+                              for lv in levels])
+
+
+def forest_hierarchy(levels: Sequence[Sequence[dict]]) -> ForestHierarchy:
+    """`ForestHierarchy` from its levels of patches, each {"ncells",
+    "domain", "lo", "hi", "parent"} (the base: lo and hi None, parent -1)."""
+    return ForestHierarchy([[Patch(_mesh(p), _ints(p["lo"]), _ints(p["hi"]), int(p["parent"]))
+                             for p in lv] for lv in levels])
+
+
+def composite_operator(ops: Sequence[dict], active, boxes, shapes, *, device=None,
+                       dtype=None) -> CompositeOperator:
+    """`CompositeOperator` from the JAX one's level operators (dicts for
+    `operator`), active masks (numpy arrays), boxes ((lo, hi) per level,
+    (None, None) for the base) and vertex shapes."""
+    return CompositeOperator(
+        ops=tuple(operator(o, device=device, dtype=dtype) for o in ops),
+        active=_vec(tuple(active), device, dtype),
+        boxes=tuple((_ints(lo), _ints(hi)) for lo, hi in boxes),
+        shapes=tuple(_ints(s) for s in shapes))
+
+
+def forest_composite_operator(ops: Sequence[dict], active, ring_par, meta, seams, shapes, *,
+                              device=None, dtype=None) -> ForestCompositeOperator:
+    """`ForestCompositeOperator` from the JAX one's patch operators (dicts
+    for `operator`), active and parent-ring masks (numpy arrays), per-patch
+    metadata (level, parent, lo, hi), seam records (k_own, k_slv, own_box,
+    slv_box) and vertex shapes."""
+    return ForestCompositeOperator(
+        ops=tuple(operator(o, device=device, dtype=dtype) for o in ops),
+        active=_vec(tuple(active), device, dtype),
+        ring_par=tuple(_tensor(np.asarray(r, dtype=bool), device) for r in ring_par),
+        meta=tuple((int(l), int(p), _ints(lo), _ints(hi)) for l, p, lo, hi in meta),
+        seams=tuple((int(ko), int(ks), tuple(_ints(b) for b in ob), tuple(_ints(b) for b in sb))
+                    for ko, ks, ob, sb in seams),
+        shapes=tuple(_ints(s) for s in shapes))

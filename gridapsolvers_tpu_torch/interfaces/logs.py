@@ -57,6 +57,13 @@ def init_history(maxiter: int, r0norm: torch.Tensor) -> torch.Tensor:
     return hist
 
 
+def record(hist: torch.Tensor, it, rnorm) -> torch.Tensor:
+    """Record the residual of iteration `it` (1-based) into `hist`, in
+    place, and return it."""
+    hist[it] = rnorm
+    return hist
+
+
 def make_stats(tols: SolverTolerances, niter: int, rnorm, r0norm, hist) -> SolverStats:
     return SolverStats(
         niter=int(niter),

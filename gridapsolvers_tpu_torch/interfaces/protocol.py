@@ -45,3 +45,17 @@ class Smoother(LinearSolver):
 
     def smooth(self, state, x, r) -> Tuple[Any, Any]:
         raise NotImplementedError
+
+
+def as_preconditioner(solver: Optional[LinearSolver], A, x=None):
+    """Setup helper tolerating `None` (identity preconditioning), like the
+    reference's nothing-preconditioner dispatch (Krylov/KrylovUtils.jl)."""
+    if solver is None:
+        return None
+    return solver.setup(A, x)
+
+
+def precond_apply(solver: Optional[LinearSolver], state, r):
+    if solver is None:
+        return r
+    return solver.apply(state, r)

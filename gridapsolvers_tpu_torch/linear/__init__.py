@@ -35,3 +35,9 @@ from .schwarz import (  # noqa: F401
     TwoLevelSchwarzSolver,
     slab_neumann_matrices,
 )
+
+# Reference-facing aliases (src/GridapSolvers.jl re-exports;
+# SymGaussSeidelSmoother already aliased in smoothers.py)
+JacobiLinearSolver = JacobiSolver
+GMGLinearSolver = GMGSolver
+IdentityLinearSolver = IdentitySolver

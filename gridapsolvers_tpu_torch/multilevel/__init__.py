@@ -5,6 +5,13 @@ from .hierarchy import (  # noqa: F401
     hierarchy_from_coarse,
     octree_cartesian_hierarchy,
 )
+from .adaptive import (  # noqa: F401
+    AdaptiveHierarchy,
+    adaptive_hierarchy,
+    adaptive_solve,
+    composite_solve,
+    composite_system,
+)
 from .transfer import (  # noqa: F401
     StructuredProlongation,
     StructuredRestriction,
@@ -33,3 +40,10 @@ from .spaces import (  # noqa: F401
     fe_space_hierarchy,
     multifield_hierarchy,
 )
+
+# Reference-facing aliases (GridapSolvers exports ProlongationOperator /
+# RestrictionOperator; src/GridapSolvers.jl:17-51)
+ProlongationOperator = StructuredProlongation
+RestrictionOperator = StructuredRestriction
+MultiFieldTransferOperator = MultiFieldTransfer
+P4estCartesianModelHierarchy = octree_cartesian_hierarchy

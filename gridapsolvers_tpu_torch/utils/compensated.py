@@ -65,6 +65,10 @@ def df_add(hi, lo, y_hi, y_lo=None):
     return fast_two_sum(s, e)
 
 
+def df_neg(hi, lo):
+    return -hi, -lo
+
+
 def comp_ell_matvec(values, cols, x, x_lo=None):
     """Compensated padded-ELL SpMV: y_hi + y_lo ~= values @ x to ~eps^2.
 

@@ -73,6 +73,13 @@ def zeros_like(x):
     return tree_map(torch.zeros_like, x)
 
 
+def where(pred, x, y):
+    """Leafwise select with a scalar (0-d boolean tensor or bool)
+    predicate."""
+    return tree_map(lambda xi, yi: torch.where(torch.as_tensor(pred, device=xi.device), xi, yi),
+                    x, y)
+
+
 def ravel(x):
     """Flatten a vector into one 1D tensor."""
     return torch.cat([leaf.reshape(-1) for leaf in tree_leaves(x)])

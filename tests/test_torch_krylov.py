@@ -144,10 +144,41 @@ def test_direct_solvers(poisson2d):
 
 
 def test_identity_solver(poisson2d):
+    """The identity solver, and the reference-facing names the JAX package
+    exports that the port carries too: the solver aliases, the interface
+    helpers, `df_neg`, `pytrees.where` and every public name of
+    `gridapsolvers_tpu.multilevel`."""
+    import importlib
+
+    import gridapsolvers_tpu.multilevel as JM
+    import gridapsolvers_tpu_torch.multilevel as TM
+    from gridapsolvers_tpu_torch.interfaces import as_preconditioner, precond_apply, record
+    from gridapsolvers_tpu_torch.utils.compensated import df_neg
+
     _, p = poisson2d
     s = TL.IdentitySolver()
     st = s.setup(p.A)
     assert s.apply(st, p.b) is p.b and s.solve(st, p.b)[0] is p.b
+    assert (TL.JacobiLinearSolver, TL.GMGLinearSolver, TL.IdentityLinearSolver) == (
+        TL.JacobiSolver, TL.GMGSolver, TL.IdentitySolver)
+    assert as_preconditioner(None, p.A) is None and precond_apply(None, None, p.b) is p.b
+    jac = TL.JacobiSolver()
+    jst = as_preconditioner(jac, p.A)
+    assert torch.equal(precond_apply(jac, jst, p.b), (1.0 / p.A.diag()) * p.b)
+    hist = record(torch.zeros(4, dtype=torch.float64), 2, torch.tensor(3.0, dtype=torch.float64))
+    assert hist.tolist() == [0.0, 0.0, 3.0, 0.0]
+    hi, lo = df_neg(torch.tensor([1.0, -2.0]), torch.tensor([0.25, 0.0]))
+    assert hi.tolist() == [-1.0, 2.0] and lo.tolist() == [-0.25, -0.0]
+    a, b = (torch.ones(2), torch.zeros(3)), (torch.zeros(2), torch.ones(3))
+    assert all(torch.equal(u, v) for u, v in zip(pt.where(torch.tensor(False), a, b), b))
+    assert all(torch.equal(u, v) for u, v in zip(pt.where(True, a, b), a))
+    for name in (n for n in dir(JM) if not n.startswith("_")):
+        assert hasattr(TM, name) or importlib.util.find_spec(
+            f"gridapsolvers_tpu_torch.multilevel.{name}") is not None, name
+    assert (TM.ProlongationOperator, TM.RestrictionOperator, TM.MultiFieldTransferOperator,
+            TM.P4estCartesianModelHierarchy) == (
+        TM.StructuredProlongation, TM.StructuredRestriction, TM.MultiFieldTransfer,
+        TM.octree_cartesian_hierarchy)
 
 
 def test_richardson_linear(poisson2d):

@@ -20,9 +20,12 @@
   Jacobi at rtol 1e-10 on A0, flexible CG outside) against dense LU and
   against JAX, on the channel problem (ns = 4, Neumann matrices).
 
-The JAX solves run under `jax.jit` (its eager CG dispatches op by op);
-the two tests loop over their cases (pytest-xdist's loadfile scheduler
-queues files of few tests last).
+The JAX solves run under `jax.jit` (its eager CG dispatches op by op).
+The JAX package's Neumann matrices and its solvers' set-ups on the channel
+problem are made once and shared by the two tests (`_jax_setup`); its
+solvers take its own Neumann matrices, which the first test holds equal to
+the port's to 1e-14. The two tests loop over their cases (pytest-xdist's
+loadfile scheduler queues files of few tests last).
 """
 import numpy as np
 import scipy.linalg
@@ -79,12 +82,34 @@ def _problem(kap):
     return mesh, A, jmesh, jA, b
 
 
-def _solve(P, A, b, jP, jA, maxiter=200, flexible=False):
-    """CG with P (port) and jP (JAX, jitted), both from zero."""
+# the JAX package's Schwarz set-ups on the channel problem, shared by the
+# two tests (each a few seconds of eager eigensolves): key -> (jP, state)
+_JAX_SETUPS = {}
+
+
+def _jax_setup(key, make, jA):
+    """The JAX solver `make()` set up on jA, once per key."""
+    if key not in _JAX_SETUPS:
+        jP = make()
+        _JAX_SETUPS[key] = (jP, jP.setup(jA))
+    return _JAX_SETUPS[key]
+
+
+def _channel_solvers(ns, jN):
+    """Keys and makers of the JAX one-level, two-level (Neumann matrices jN)
+    and algebraic two-level solvers with ns slabs."""
+    return {("one", ns): lambda: jl.SchwarzLinearSolver(ns, 2),
+            ("two", ns): lambda: jl.TwoLevelSchwarzSolver(ns, 2, NEV, neumann_matrices=jN),
+            ("algebraic", ns): lambda: jl.TwoLevelSchwarzSolver(ns, 2, NEV)}
+
+
+def _solve(P, A, b, jP, jA, maxiter=200, flexible=False, jstate=None):
+    """CG with P (port) and jP (JAX, jitted; set up on jA, or `jstate`),
+    both from zero."""
     s = tl.CGSolver(Pl=P, rtol=1e-8, maxiter=maxiter, flexible=flexible)
     x, stats = s.solve(s.setup(A), torch.from_numpy(np.asarray(b)))
     js = jl.CGSolver(Pl=jP, rtol=1e-8, maxiter=maxiter, flexible=flexible)
-    jst = js.setup(jA)
+    jst = js.setup(jA) if jstate is None else {"A": jA, "Pl": jstate}
     jx, jstats = jax.jit(lambda v: js.solve(jst, v))(jnp.asarray(b))
     assert stats.niter == int(jstats.niter) and int(stats.flag) == int(jstats.flag)
     k = stats.niter
@@ -92,6 +117,17 @@ def _solve(P, A, b, jP, jA, maxiter=200, flexible=False):
     np.testing.assert_allclose(h, jh, rtol=HIST_RTOL, atol=HIST_FLOOR * jh[0])
     _close(x.numpy(), jx, X_RTOL)
     return stats
+
+
+_JAX_NEUMANN = {}
+
+
+def _jax_neumann(jmesh, ns, kap):
+    """The JAX package's slab Neumann matrices of the channel problem, once
+    per slab count."""
+    if ns not in _JAX_NEUMANN:
+        _JAX_NEUMANN[ns] = jl.slab_neumann_matrices(jmesh, ns, overlap=2, kappa=kap)
+    return _JAX_NEUMANN[ns]
 
 
 def _geneo_eigenvalues(jA, N, ns):
@@ -142,22 +178,21 @@ def test_laplacian_var_and_schwarz_applies_equal_jax():
     r = torch.from_numpy(b)
     for ns in (2, 4):
         N = tl.slab_neumann_matrices(mesh, ns, overlap=2, kappa=kap)
-        jN = jl.slab_neumann_matrices(jmesh, ns, overlap=2, kappa=kap)
+        jN = _jax_neumann(jmesh, ns, kap)
         _close(N, jN, EXACT_RTOL)
-        one, jone = tl.SchwarzLinearSolver(ns, 2), jl.SchwarzLinearSolver(ns, 2)
-        _close(one.apply(one.setup(A), r).numpy(), jone.apply(jone.setup(jA), jnp.asarray(b)),
-               APPLY_RTOL)
-        for jneumann in (jN, None):
-            P = tl.TwoLevelSchwarzSolver(
-                ns, 2, NEV,
-                neumann_matrices=None if jneumann is None else np.array(jneumann))
-            jP = jl.TwoLevelSchwarzSolver(ns, 2, NEV, neumann_matrices=jneumann)
+        makers = _channel_solvers(ns, jN)
+        one = tl.SchwarzLinearSolver(ns, 2)
+        jone, jst = _jax_setup(("one", ns), makers["one", ns], jA)
+        _close(one.apply(one.setup(A), r).numpy(), jone.apply(jst, jnp.asarray(b)), APPLY_RTOL)
+        for kind, neumann in (("two", np.array(jN)), ("algebraic", None)):
+            P = tl.TwoLevelSchwarzSolver(ns, 2, NEV, neumann_matrices=neumann)
+            jP, jst = _jax_setup((kind, ns), makers[kind, ns], jA)
             st = P.setup(A)
             lam = st["eigenvalues"].numpy()
             assert np.all(lam[:, NEV - 1] < 0.99 * lam[:, NEV]), lam
-            if jneumann is not None:
+            if neumann is not None:
                 np.testing.assert_allclose(lam, _geneo_eigenvalues(jA, jN, ns), rtol=EIG_RTOL)
-            _close(P.apply(st, r).numpy(), jP.apply(jP.setup(jA), jnp.asarray(b)), APPLY_RTOL)
+            _close(P.apply(st, r).numpy(), jP.apply(jst, jnp.asarray(b)), APPLY_RTOL)
 
     # update after a kappa change equals the JAX solver set up at the new
     # kappa (the algebraic pencil follows the operator)
@@ -182,13 +217,13 @@ def test_schwarz_cg_histories_equal_jax():
     its = {}
     for ns in (2, 4):
         N = tl.slab_neumann_matrices(mesh, ns, overlap=2, kappa=kap)
-        its[ns, "one"] = _solve(tl.SchwarzLinearSolver(ns, 2), A, b,
-                                jl.SchwarzLinearSolver(ns, 2), jA).niter
-        its[ns, "two"] = _solve(tl.TwoLevelSchwarzSolver(ns, 2, NEV, neumann_matrices=N), A, b,
-                                jl.TwoLevelSchwarzSolver(ns, 2, NEV, neumann_matrices=N),
-                                jA).niter
-        its[ns, "algebraic"] = _solve(tl.TwoLevelSchwarzSolver(ns, 2, NEV), A, b,
-                                      jl.TwoLevelSchwarzSolver(ns, 2, NEV), jA).niter
+        ports = {"one": tl.SchwarzLinearSolver(ns, 2),
+                 "two": tl.TwoLevelSchwarzSolver(ns, 2, NEV, neumann_matrices=N),
+                 "algebraic": tl.TwoLevelSchwarzSolver(ns, 2, NEV)}
+        makers = _channel_solvers(ns, _jax_neumann(jmesh, ns, kap))
+        for kind, P in ports.items():
+            jP, jst = _jax_setup((kind, ns), makers[kind, ns], jA)
+            its[ns, kind] = _solve(P, A, b, jP, jA, jstate=jst).niter
         assert its[ns, "one"] > its[ns, "two"], its
     # the JAX package's measurements at this size
     assert (its[2, "two"], its[4, "two"], its[2, "one"], its[4, "one"]) == (14, 20, 32, 200), its
@@ -199,16 +234,19 @@ def test_schwarz_cg_histories_equal_jax():
     # 4 repeated on its interior slabs, so its coarse space, and P r, depend
     # on the eigensolver's basis)
     N = tl.slab_neumann_matrices(mesh, 4, overlap=2, kappa=kap)
+    jN = _jax_neumann(jmesh, 4, kap)
     its = {}
     for name, cs, jcs in (
         ("dense", None, None),
         ("nested", tl.CGSolver(Pl=tl.JacobiSolver(), rtol=1e-10, maxiter=100),
          jl.CGSolver(Pl=jl.JacobiSolver(), rtol=1e-10, maxiter=100)),
     ):
+        # the dense coarse solver is the two-level solver of above
+        jP, jst = (_jax_setup(("two", 4), _channel_solvers(4, jN)["two", 4], jA) if cs is None
+                   else (jl.TwoLevelSchwarzSolver(4, 2, NEV, neumann_matrices=jN,
+                                                  coarse_solver=jcs), None))
         stats = _solve(tl.TwoLevelSchwarzSolver(4, 2, NEV, neumann_matrices=N, coarse_solver=cs),
-                       A, b, jl.TwoLevelSchwarzSolver(4, 2, NEV, neumann_matrices=N,
-                                                      coarse_solver=jcs),
-                       jA, maxiter=100, flexible=True)
+                       A, b, jP, jA, maxiter=100, flexible=True, jstate=jst)
         assert stats.converged(), name
         its[name] = stats.niter
     assert abs(its["dense"] - its["nested"]) <= 2, its

@@ -82,6 +82,8 @@ def test_velocity_gmg_vcycle_equal_jax(ncells, levels):
     rng = np.random.default_rng(7)
     r = tuple(rng.normal(size=v.shape[0]) for v in prob.b[0])
     z = gmg.apply(state, tuple(torch.from_numpy(v) for v in r))
-    jz = jax.jit(lambda v: jgmg.apply(jstate, v))(tuple(jnp.asarray(v) for v in r))
+    # the 3D V-cycle runs eagerly: compiling it costs more than it saves
+    japply = lambda v: jgmg.apply(jstate, v)  # noqa: E731
+    jz = (japply if len(ncells) == 3 else jax.jit(japply))(tuple(jnp.asarray(v) for v in r))
     _assert_close(z, jz, VCYCLE_RTOL)
     assert all(t.dtype == torch.float64 for t in z)

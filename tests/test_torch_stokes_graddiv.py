@@ -216,16 +216,13 @@ def test_graddiv_3d():
 
 
 def test_not_yet_ported_pieces_raise():
-    """What the port leaves for later: AMR and the distributed operators.
-    (The colored Gauss-Seidel smoothers and the FE-space projection
-    transfers, once checked here, are ported: tests/test_torch_multilevel_
-    spaces.py; the GenEO Schwarz solvers and the H(curl) and MHD
-    applications: tests/test_torch_{schwarz,hcurl,mhd}.py.)"""
+    """What the port leaves for later: the distributed operators. (The
+    colored Gauss-Seidel smoothers and the FE-space projection transfers,
+    once checked here, are ported: tests/test_torch_multilevel_spaces.py;
+    the GenEO Schwarz solvers and the H(curl) and MHD applications:
+    tests/test_torch_{schwarz,hcurl,mhd}.py; AMR:
+    tests/test_torch_amr.py.)"""
     from gridapsolvers_tpu_torch.algebra import to_scipy
-
-    for mod in ("multilevel.adaptive", "multilevel.forest"):
-        with pytest.raises(ModuleNotFoundError):
-            __import__(f"gridapsolvers_tpu_torch.{mod}")
 
     class DistELLMatrix:
         pass
