@@ -8,7 +8,8 @@ Run from the repository root on a machine with one CUDA card:
 It builds the three hand-written kernels from `gridapsolvers_tpu_torch/csrc/`
 (nvcc, sm_90a, all three at once) and drives the port's Poisson, Stokes,
 Navier-Stokes, Darcy, elasticity, GenEO Schwarz, H(curl), MHD and AMR
-paths through their public entry points, in phases that each print one line:
+paths and the distributed Poisson GMG-CG through their public entry points,
+in phases that each print one line:
 
   1 device   card name and power limit (nvidia-smi), TF32 off
   2 build    the kernels, with build seconds and ptxas register counts
@@ -100,6 +101,16 @@ paths through their public entry points, in phases that each print one line:
              GMG level) in f64, its energy error on the 512^3 frame against
              the coarse-only solve's; then K2 on its base composite, largest
              patch and base GMG level-0 operators against the plain version
+  6Q path Q  the distributed Poisson GMG-CG (parallel.distributed_poisson_gmg
+             + CG, 128^3 cells, f64, 4 levels, Chebyshev(3) on Gershgorin
+             bounds) through parallel.launch.run_ranks: Q1 on one rank over
+             NCCL, held against the serial GMG-CG of the same levels
+             (iterations equal, x to 1e-10 of max|x|); Q2 on two gloo ranks
+             sharing the card (blocks and K2 on the card, halo slabs and
+             reductions through pinned host buffers), held against Q1; each
+             rank's K2 launches by extended block shape against
+             k2_launches_formula, and its messages per iteration; then K2 on
+             Q2's level-0 extended blocks against its plain version
   7 K3 ops   K3 on path C's own 128^3 level operators, P and R (f32, bf16
              values, one f64 level) against its plain version
   8 times    per-apply kernel, plain, library and bound times (K1
@@ -110,8 +121,9 @@ paths through their public entry points, in phases that each print one line:
              512^2 operators and K2 on its banded blocks; K3 on path I1's
              level-0 Jacobian blocks; K2 and K3 on paths J, K, M, N and O's
              operators, cold and warm, beside cuSPARSE int32 and int64; K2
-             on path P1's three operators likewise), K3's lanes sweep, and
-             each 128^3 and 512^2 solve
+             on path P1's three operators and path Q2's level-0 extended
+             blocks likewise), K3's lanes sweep, and each 128^3 and 512^2
+             solve
 
 Each path's 128^3 run starts with every launch count at 0 and is read
 right after, so the counts show that every operator apply went through
@@ -413,6 +425,20 @@ P_ITS = (120, 190)
 P_C3 = 300.0
 P_CENTRES = ((0.25, 0.25, 0.25), (0.75, 0.75, 0.75))
 P2_TOL = 1e-8
+# path Q: the distributed Poisson GMG-CG (parallel.distributed_poisson_gmg
+# + CGSolver, rtol Q_RTOL) at NC_Q^3 cells in f64 with path A's level count
+# and Chebyshev(3) on Gershgorin bounds (the same bound on every split: a
+# Lanczos estimate starts from a vector of the padded grid's length, so
+# it would part Q2 from Q1). Q1: world size 1 over NCCL, held against the
+# serial GMG-CG of the same levels, transfers and smoother; Q2: 2 gloo ranks
+# on the one card (blocks and kernels on the card, messages through
+# pinned host buffers), held against Q1. scripts/dist_sweep.py gives the
+# iterations on the CPU (7 at 32^3 and 64^3 for every layout)
+NC_Q, LEVELS_Q = 128, 4
+Q_RTOL, Q_MAXITER = 1e-8, 30
+Q_SMOOTHER = {"degree": 3, "eig_method": "gershgorin"}
+Q_ITS = (5, 12)
+Q_X_TOL = 1e-10
 KERNELS = ("const_stencil", "banded_stencil", "ell_spmv")
 COUNTS = {"K1": k1.counts, "K2": k2.counts, "K3": k3.counts}
 
@@ -2469,6 +2495,131 @@ def paths_p(dev, opts, card, elapsed, launches, check_k2, lines) -> dict:
     return {"ops": ops, "op_launches": op_launches, "shapes": shapes_p, "t_solve": t_solve}
 
 
+def q_serial(dev) -> tuple:
+    """Path Q's serial twin on `dev`: GMG-CG from the same Dirichlet
+    `laplacian` levels, masked transfers and Chebyshev smoother."""
+    f64 = torch.float64
+    hier = cartesian_hierarchy((NC_Q,) * 3, LEVELS_Q)
+    prob = poisson_problem((NC_Q,) * 3, dtype=f64, device=dev)
+
+    def assemble(m):
+        return eliminate_dirichlet(laplacian(m, f64, dev), m.boundary_vertex_mask())
+
+    gmg = gmg_from_hierarchy(hier, assemble, smoother=ChebyshevSmoother(**Q_SMOOTHER),
+                             dtype=f64, device=dev)
+    solver = CGSolver(Pl=gmg, rtol=Q_RTOL, maxiter=Q_MAXITER)
+    x, st = solver.solve(solver.setup(prob.A), prob.b)
+    return x.cpu().numpy(), st
+
+
+def q_comms(row) -> str:
+    """What a rank sent, per operator apply plus V-cycle (a solve makes
+    n + 1 of each) and per CG iteration (all-reduces; 2 more before the
+    loop)."""
+    n, c = row["iters"], row["comm"]
+    return (f"{c['p2p_batches'] / (n + 1):.0f} p2p batches ({c['p2p_messages'] / (n + 1):.0f} "
+            f"messages, {c['p2p_bytes'] / (n + 1):.0f} B) and {c['all_gathers'] / (n + 1):.0f} "
+            f"all-gathers ({c['gather_bytes'] / (n + 1):.0f} B) per apply + V-cycle, "
+            f"{(c['all_reduces'] - 2) / n if c['all_reduces'] else 0:.0f} all-reduces per "
+            f"iteration")
+
+
+def paths_q(dev, card, elapsed, launches, check_k2, lines) -> dict:
+    """Path Q (main's phase 6Q): the distributed Poisson GMG-CG through
+    `parallel.launch.run_ranks`, Q1 on one NCCL rank and Q2 on two gloo
+    ranks sharing the card, each rank's K2 launches counted in its solve
+    (every count set to 0 just before it, read just after) and held by
+    operand shape against `k2_launches_formula`; then K2 on Q2's level-0
+    extended blocks against its plain version. Returns the launches by
+    shape and the level-0 operators for phase 8."""
+    from gridapsolvers_tpu_torch.parallel.dist import pad_stencil
+    from gridapsolvers_tpu_torch.parallel.launch import run_ranks
+    from gridapsolvers_tpu_torch.parallel.weak_scaling import k2_launches_formula, poisson_case
+
+    f64 = torch.float64
+    deg = Q_SMOOTHER["degree"]
+    kw = {"rtol": Q_RTOL, "maxiter": Q_MAXITER, "smoother": Q_SMOOTHER, "return_x": True}
+    t0 = time.perf_counter()
+    x_serial, st_serial = q_serial(dev)
+    serial_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    rows = {}
+    on_card = torch.device(dev).type == "cuda"
+    for name, layout in (("Q1", (1,)), ("Q2", (2,))):
+        t0 = time.perf_counter()
+        rows[name] = run_ranks(poisson_case, layout[0], ((NC_Q,) * 3, LEVELS_Q, layout), kw,
+                               device=torch.device(dev).type, timeout=600)
+        rows[name + " s"] = time.perf_counter() - t0
+    q1, q2 = rows["Q1"][0], rows["Q2"]
+    assert q1["transport"] == ("nccl" if on_card else "gloo"), q1["transport"]
+    assert all(r["transport"] == ("gloo-host-staged" if on_card else "gloo") for r in q2), [
+        r["transport"] for r in q2]
+    n = q1["iters"]
+    assert st_serial.converged() and Q_ITS[0] <= n <= Q_ITS[1] and q1["flag"] == st_serial.flag
+    assert n == st_serial.niter, (n, st_serial.niter)
+    e1 = float(np.abs(q1["x"] - x_serial).max() / np.abs(x_serial).max())
+    assert e1 <= Q_X_TOL, f"Q1 x against the serial solve {e1:.2e}"
+    assert all((r["iters"], r["flag"]) == (n, q1["flag"]) for r in q2), [r["iters"] for r in q2]
+    e2 = float(np.abs(q2[0]["x"] - q1["x"]).max() / np.abs(q1["x"]).max())
+    assert e2 <= Q_X_TOL, f"Q2 x against Q1 {e2:.2e}"
+    assert np.isfinite(q2[0]["x"]).all() and q2[0]["x"].shape == ((NC_Q + 1) ** 3,)
+    shapes = {}
+    for tag, r in [("Q1", q1)] + [(f"Q2 rank {i}", r) for i, r in enumerate(q2)]:
+        want = k2_launches_formula(r["iters"], r["level_shapes"], deg)
+        if on_card:
+            assert r["k2_shapes"] == want, (tag, r["k2_shapes"], want)
+            assert r["k2_plain"] == 0 and r["k2_launches"] == sum(want.values()), tag
+        else:  # a rehearsal on the CPU: every apply on the plain version
+            assert r["k2_launches"] == 0 and r["k2_plain"] == sum(want.values()), tag
+            r["k2_shapes"] = want
+        shapes[tag] = r["k2_shapes"]
+        launches[tag] = {"K1": 0, "K2": r["k2_launches"], "K3": 0}
+
+    def by_shape(counts):
+        return ", ".join(f"{'x'.join(map(str, k))} {v}" for k, v in sorted(counts.items()))
+
+    h = q1["history"]
+    print(f"[6Q path Q] distributed Poisson GMG-CG, {NC_Q}^3 cells f64, {LEVELS_Q} levels, "
+          f"Chebyshev({deg}) on Gershgorin bounds, CG rtol {Q_RTOL:g}: serial twin {st_serial.niter}"
+          f" its ({serial_s:.1f} s with set-up) | Q1 1 rank ({q1['transport']}): {n} its (band "
+          f"{Q_ITS}), flag {q1['flag']}, residuals " + " ".join(f"{v:.3e}" for v in h)
+          + f", x against the serial twin {e1:.1e} of max|x|; set-up {q1['setup_s']:.2f} s, "
+          f"solve {q1['time_s']:.3f} s, launch {rows['Q1 s']:.1f} s; K2 by shape = formula: "
+          f"{by_shape(shapes['Q1'])} | Q2 2 ranks ({q2[0]['transport']}, padded "
+          f"{q2[0]['padded']}, blocks {q2[0]['block']}): {[r['iters'] for r in q2]} its, x "
+          f"against Q1 {e2:.1e} of max|x|; set-up {[round(r['setup_s'], 2) for r in q2]} s, "
+          f"solve {[round(r['time_s'], 3) for r in q2]} s, launch {rows['Q2 s']:.1f} s; "
+          + "; ".join(f"rank {i}: K2 by shape = formula: {by_shape(shapes[f'Q2 rank {i}'])}; "
+                      f"{q_comms(r)}" for i, r in enumerate(q2))
+          + f" {elapsed()}", flush=True)
+
+    # K2 on Q2's level-0 extended blocks (the halo matvec's and the
+    # ghost-extended smoother's) against its plain version: rank 0's rows
+    # of the padded level-0 operator below a zero lower halo
+    m0 = cartesian_hierarchy((NC_Q,) * 3, LEVELS_Q)[0]
+    A = eliminate_dirichlet(laplacian(m0, f64, dev), m0.boundary_vertex_mask())
+    A = pad_stencil(A, (2,), target_shape=q2[0]["padded"])
+    blk = q2[0]["block"][0]
+    grid, ca = q2[0]["level_shapes"][0]
+    ops, op_launches = {}, {}
+    for tag, g in (("halo matvec", grid), ("smoother", ca)):
+        lo = (g[0] - blk) // 2
+        bands = A.bands.new_zeros((27,) + tuple(g))
+        bands[:, lo:] = A.bands[:, : g[0] - lo]
+        key = f"Q K2 level 0 {tag}"
+        ops[key] = StencilMatrix(bands, A.offsets, tuple(g))
+        op_launches[key] = shapes["Q2 rank 0"][(27,) + tuple(g)]
+        xq = torch.from_numpy(np.random.default_rng(13).normal(size=ops[key].n)).to(dev, f64)
+        check_k2(f"[Q2 level 0 {tag} {'x'.join(map(str, g))}]f64", ops[key], xq, F64_TOL, True)
+    print(f"[6Q kernels] {len(lines)} cases within f64 {F64_TOL:.0e}: " + ", ".join(lines)
+          + f" {elapsed()}", flush=True)
+    lines.clear()
+    del A
+    torch.cuda.empty_cache()
+    return {"shapes": shapes, "ops": ops, "op_launches": op_launches,
+            "t_solve": {"Q1": q1["time_s"], "Q2": max(r["time_s"] for r in q2)}}
+
+
 def ell_csr(A: ELLMatrix, index=torch.int32) -> torch.Tensor:
     """A's real entries (slots within each row's length) as a torch CSR
     tensor on its device: the cuSPARSE yardstick, never called by the
@@ -3619,6 +3770,9 @@ def main() -> None:
     # ---- 6P path P: block-structured AMR
     amr = paths_p(dev, opts, card, elapsed, launches, check_k2, lines)
 
+    # ---- 6Q path Q: the distributed Poisson GMG-CG (1 NCCL rank, 2 gloo ranks)
+    dq = paths_q(dev, card, elapsed, launches, check_k2, lines)
+
     # ---- 7 K3 on path C's own operators ---------------------------------
     ops = ([(f"level {i}", m) for i, m in enumerate(amg["mats"]) if i > 0]
            + [(f"P{i}", m) for i, m in enumerate(amg["P"])]
@@ -3866,8 +4020,9 @@ def main() -> None:
     # CSR with int32 and int64 indices on the same real entries (which also
     # cross-checks y) and the bytes bound
     jk_keys = {}
-    jk_ops = {**jk["jk_ops"], **mno["ops"], **amr["ops"]}
-    j_block_launches = {**jk["j_block_launches"], **mno["op_launches"], **amr["op_launches"]}
+    jk_ops = {**jk["jk_ops"], **mno["ops"], **amr["ops"], **dq["ops"]}
+    j_block_launches = {**jk["j_block_launches"], **mno["op_launches"], **amr["op_launches"],
+                        **dq["op_launches"]}
     for key, A in jk_ops.items():
         xj = vec(A.shape[1], f64)
         if isinstance(A, StencilMatrix):
@@ -3994,7 +4149,8 @@ def main() -> None:
                       f"(int64 {t[key + ' library int64']:.4f}), bound {bound[key]:.4f}, "
                       f"launches {j_block_launches[key]}, kernel vs cuSPARSE y {e:.1e}"
                       for key, (desc, e) in jk_keys.items()
-                      if key not in mno["ops"] and key not in amr["ops"])
+                      if key not in mno["ops"] and key not in amr["ops"]
+                      and key not in dq["ops"])
           + f" | solve only, median of 3: J1 {jk['t_solve_j']:.2f} ms, Ka {jk['t_solve_k']:.2f} ms "
           f"{elapsed()}", flush=True)
     print(f"[8 M N O] {card} | paths M1 ({NC_M[0]}x{NC_M[1]}), N1 ({NC_N}^3) and O1 ({NC_O}^3) "
@@ -4015,6 +4171,16 @@ def main() -> None:
                       f"launches {j_block_launches[key]}, kernel vs cuSPARSE y {e:.1e}"
                       for key, (desc, e) in jk_keys.items() if key in amr["ops"])
           + f" | P1 solve only, median of 3: {amr['t_solve']:.2f} ms {elapsed()}", flush=True)
+    print(f"[8 Q] {card} | path Q2's level-0 extended blocks ({NC_Q}^3, 2 ranks), f64, median "
+          f"of {TIMING_RUNS} (CUDA events), ms per apply: "
+          + "; ".join(f"{key} ({desc}) kernel {t[key]:.4f} (cold {t[key + ' cold']:.4f}), "
+                      f"plain {t[key + ' plain']:.4f}, cuSPARSE int32 {t[key + ' library']:.4f} "
+                      f"(int64 {t[key + ' library int64']:.4f}), bound {bound[key]:.4f}, "
+                      f"launches a rank {j_block_launches[key]}, kernel vs cuSPARSE y {e:.1e}"
+                      for key, (desc, e) in jk_keys.items() if key in dq["ops"])
+          + " | solve only (in the ranks, one run): " + ", ".join(
+              f"{k} {v * 1e3:.2f} ms" for k, v in dq["t_solve"].items()) + f" {elapsed()}",
+          flush=True)
     if opts.profile is not None:
         summary = profile_solve(lambda: cgC.solve(stateC, probC.b), opts.profile, "path_c")
         print(f"[profile] path C solve, {card}: {summary} {elapsed()}", flush=True)
@@ -4112,6 +4278,10 @@ def main() -> None:
     k2_row["amr"] = {"P1 " + key.split(" K2 ")[1]: jk_entry(key) for key in jk_keys
                      if key.startswith("P K2")}
     k2_row["amr"]["P1 launches_by_shape"] = by_shape(amr["shapes"])
+    k2_row["distributed"] = {"Q2 " + key.split(" K2 ")[1]: jk_entry(key) for key in jk_keys
+                             if key.startswith("Q K2")}
+    for tag, shapes_q in dq["shapes"].items():
+        k2_row["distributed"][f"{tag} launches_by_shape"] = by_shape(shapes_q)
     for name, path in (("hcurl", "N"), ("mhd", "O")):
         k3_row[name] = {f"{path}1 " + key.split(" K3 ")[1]: jk_entry(key) for key in jk_keys
                         if key.startswith(f"{path} K3")}

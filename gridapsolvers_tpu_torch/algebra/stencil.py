@@ -11,7 +11,8 @@ and SpMV is sum_s bands[s] * shift(x, offsets[s]). `StencilMatrix.matvec`
 runs kernel K2 (`ops/banded_stencil.py`) on CUDA tensors and its plain
 PyTorch version on CPU tensors; `ConstStencilMatrix.matvec` does the same
 with kernel K1 (`ops/const_stencil.py`). Vectors are flat (prod(grid),)
-tensors.
+tensors, or grid-shaped ones for a `StencilMatrix` built with
+`grid_vectors=True` (the distributed path, `parallel/`).
 """
 from __future__ import annotations
 
@@ -76,12 +77,16 @@ class StencilMatrix:
     offsets    : tuple of d-tuples
     grid_shape : dof grid shape; vectors are flat (prod(grid),)
     periodic   : per-axis periodic wrap (None = all open)
+    grid_vectors : vectors, diag() and abs_row_sum() are grid-shaped
+                 instead of flat (the JAX package's flag of that name,
+                 `algebra/stencil.py:76`, set by its distributed path)
     """
 
     bands: torch.Tensor
     offsets: Tuple[Tuple[int, ...], ...]
     grid_shape: Tuple[int, ...]
     periodic: Optional[Tuple[bool, ...]] = None
+    grid_vectors: bool = False
 
     @property
     def n(self) -> int:
@@ -106,23 +111,27 @@ class StencilMatrix:
     def _periodic(self):
         return self.periodic or tuple(False for _ in self.grid_shape)
 
+    def _out(self, v: torch.Tensor) -> torch.Tensor:
+        return v.reshape(self.grid_shape if self.grid_vectors else (-1,))
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return banded_stencil_apply(
+        return self._out(banded_stencil_apply(
             self.bands, self.offsets, self.grid_shape, self._periodic(), x
-        )
+        ))
 
     def diag(self) -> torch.Tensor:
         center = self.offsets.index(tuple(0 for _ in self.grid_shape))
-        return self.bands[center].reshape(-1)
+        return self._out(self.bands[center])
 
     def abs_row_sum(self) -> torch.Tensor:
         """sum_j |a_ij| per row (Gershgorin bounds)."""
-        return torch.sum(torch.abs(self.bands), dim=0).reshape(-1)
+        return self._out(torch.sum(torch.abs(self.bands), dim=0))
 
     def astype(self, dtype) -> "StencilMatrix":
-        return StencilMatrix(
-            self.bands.to(dtype), self.offsets, self.grid_shape, self.periodic
-        )
+        return dataclasses.replace(self, bands=self.bands.to(dtype))
+
+    def with_grid_vectors(self, flag: bool = True) -> "StencilMatrix":
+        return dataclasses.replace(self, grid_vectors=flag)
 
     def to_ell(self, device=None):
         """ELLMatrix of the same operator on `device` (default: the bands'

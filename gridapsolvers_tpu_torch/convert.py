@@ -596,3 +596,43 @@ def forest_composite_operator(ops: Sequence[dict], active, ring_par, meta, seams
         seams=tuple((int(ko), int(ks), tuple(_ints(b) for b in ob), tuple(_ints(b) for b in sb))
                     for ko, ks, ob, sb in seams),
         shapes=tuple(_ints(s) for s in shapes))
+
+
+def _block_slices(shape, procs, coords, lead: int):
+    grid = tuple(shape[lead:])
+    procs = tuple(procs) + (1,) * (len(grid) - len(procs))
+    coords = tuple(coords) + (0,) * (len(grid) - len(coords))
+    sl = []
+    for n, p, c in zip(grid, procs, coords):
+        if n % p:
+            raise ValueError(f"padded shape {grid} does not split over {procs} ranks")
+        m = n // p
+        sl.append(slice(c * m, (c + 1) * m))
+    return (slice(None),) * lead + tuple(sl)
+
+
+def shard_from_jax(a: np.ndarray, procs: Sequence[int], coords: Sequence[int], *, lead: int = 0,
+                   device=None, dtype=None) -> torch.Tensor:
+    """One rank's block of a JAX sharded grid vector or sharded bands,
+    handed over whole as a numpy array of its padded shape: grid axis k
+    (after `lead` leading axes: 1 for bands) is cut in procs[k] equal
+    blocks and the rank at mesh coordinates `coords` keeps block
+    coords[k]. The block is what `parallel.dist.BlockLayout.take` keeps."""
+    a = np.asarray(a)
+    return _tensor(a[_block_slices(a.shape, procs, coords, lead)], device, dtype)
+
+
+def unshard_to_jax(blocks: Sequence, procs: Sequence[int], *, lead: int = 0) -> np.ndarray:
+    """The whole padded array from every rank's block (tensors or numpy
+    arrays, in rank order: C order over the mesh of shape `procs`), as
+    the numpy array a JAX sharded array of that layout holds."""
+    blocks = [b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b) for b in blocks]
+    procs = tuple(procs)
+    b0 = blocks[0]
+    grid_procs = procs + (1,) * (b0.ndim - lead - len(procs))
+    shape = tuple(b0.shape[:lead]) + tuple(m * p for m, p in zip(b0.shape[lead:], grid_procs))
+    out = np.empty(shape, dtype=b0.dtype)
+    for r, b in enumerate(blocks):
+        coords = np.unravel_index(r, procs)
+        out[_block_slices(shape, procs, coords, lead)] = b
+    return out

@@ -159,8 +159,7 @@ def gershgorin_dinv_a_lmax(A, inv_diag) -> torch.Tensor:
     """Guaranteed upper bound on lmax(D⁻¹A): max_i sum_j |a_ij| / a_ii.
     Never underestimates, so it is safe for Chebyshev; typically ~30-40%
     loose on FEM Laplacians."""
-    vals = pt.mul(inv_diag, A.abs_row_sum())
-    return max(torch.max(torch.abs(leaf)) for leaf in pt.tree_leaves(vals))
+    return pt.max_abs(pt.mul(inv_diag, A.abs_row_sum()))
 
 
 def estimate_dinv_a_lmax(A, inv_diag, iters: int = 20) -> torch.Tensor:
@@ -176,16 +175,11 @@ def estimate_dinv_a_lmax(A, inv_diag, iters: int = 20) -> torch.Tensor:
 
     leaves = pt.tree_leaves(inv_diag)
     dtype, device = leaves[0].dtype, leaves[0].device
-    n = sum(leaf.numel() for leaf in leaves)
-    k = min(iters, max(2, n - 1))
+    k = min(iters, max(2, pt.size(inv_diag) - 1))
 
-    # deterministic pseudo-random start, the JAX package's exactly
-    v = pt.tree_map(
-        lambda l: torch.sin(
-            torch.arange(1, l.numel() + 1, dtype=l.dtype, device=l.device) * 12.9898
-        ).reshape(l.shape),
-        inv_diag,
-    )
+    # deterministic pseudo-random start, the JAX package's exactly (on a
+    # sharded vector, the global vector's entries of this rank's block)
+    v = pt.seeded_like(inv_diag)
     v = pt.scale(1.0 / pt.norm(v), v)
     v_prev = pt.zeros_like(v)
     beta_prev = torch.zeros((), dtype=dtype, device=device)
@@ -290,12 +284,7 @@ class PreconditionedChebyshevSmoother(Smoother):
     power_iters: int = 12
 
     def _lmax(self, Mst, A) -> float:
-        v = pt.tree_map(
-            lambda d: torch.sin(
-                torch.arange(1, d.numel() + 1, dtype=d.dtype, device=d.device) * 12.9898
-            ).reshape(d.shape),
-            A.diag(),
-        )
+        v = pt.seeded_like(A.diag())
         v = pt.scale(1.0 / pt.norm(v), v)
         lam = None
         for _ in range(self.power_iters):

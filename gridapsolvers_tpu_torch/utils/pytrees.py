@@ -5,6 +5,13 @@ Port of `gridapsolvers_tpu/utils/pytrees.py`. A vector is a
 has a pytree of blocks; every function maps over the leaves. Reductions
 return 0-d tensors on the vectors' device, so nothing here waits for the
 device.
+
+A `Sharded` leaf is one rank's block of a grid vector split over the ranks
+of a process mesh (`parallel/`), where the JAX package has a sharded
+array. Maps act on the block; `dot`, `norm`, `max_abs`, `size` and
+`seeded_like` reduce or index over the whole vector through the block's
+`layout`, so the solvers built on these functions (CG, GMG, Chebyshev)
+give every rank the global value and know nothing of the split.
 """
 from __future__ import annotations
 
@@ -15,32 +22,100 @@ import operator
 import torch
 
 
-def tree_leaves(x):
-    """Leaves of a tensor or (nested) tuple/list of tensors, in order."""
+@dataclasses.dataclass(frozen=True, eq=False)
+class Sharded:
+    """One rank's block `local` of a vector split over a process mesh.
+    `layout` (a `parallel.dist.BlockLayout`, equal for blocks of one
+    split) knows the global shape, this block's place in it and the ranks
+    that hold the others: it gives `all_reduce(t, op)` (the sum or max of
+    a 0-d tensor over the ranks), `global_numel` and
+    `global_flat_index(device)`."""
+
+    local: torch.Tensor
+    layout: object
+
+
+def _blocks(x):
+    """(tensor, layout or None) of every leaf, in order."""
     if isinstance(x, (tuple, list)):
-        return [leaf for xi in x for leaf in tree_leaves(xi)]
-    return [x]
+        return [blk for xi in x for blk in _blocks(xi)]
+    if isinstance(x, Sharded):
+        return [(x.local, x.layout)]
+    return [(x, None)]
+
+
+def tree_leaves(x):
+    """Leaves of a tensor or (nested) tuple/list of tensors, in order; a
+    `Sharded` leaf gives its local block."""
+    return [t for t, _ in _blocks(x)]
 
 
 def tree_map(fn, x, *rest):
-    """Apply `fn` leafwise over one or more vectors of the same structure."""
+    """Apply `fn` leafwise over one or more vectors of the same structure;
+    on `Sharded` leaves, to the local blocks, keeping the layout."""
     if isinstance(x, (tuple, list)):
         return type(x)(tree_map(fn, *parts) for parts in zip(x, *rest))
+    if isinstance(x, Sharded):
+        for r in rest:
+            if not (isinstance(r, Sharded) and r.layout == x.layout):
+                raise TypeError("a Sharded vector meets a vector of another layout")
+        return Sharded(fn(x.local, *(r.local for r in rest)), x.layout)
     return fn(x, *rest)
 
 
+def _reduce(parts, op):
+    """Combine per-leaf 0-d terms: `op` over the plain leaves' terms and
+    the all-reduced local terms of each sharded layout (one collective a
+    layout)."""
+    plain, by_layout = [], {}
+    for t, layout in parts:
+        if layout is None:
+            plain.append(t)
+        else:
+            by_layout.setdefault(layout, []).append(t)
+    combine = operator.add if op == "sum" else torch.maximum
+    for layout, terms in by_layout.items():
+        plain.append(layout.all_reduce(functools.reduce(combine, terms), op))
+    return functools.reduce(combine, plain)
+
+
 def dot(a, b):
-    """Global inner product sum_i <a_i, b_i> over all leaves (real)."""
-    terms = [
-        torch.dot(x.reshape(-1), y.reshape(-1))
-        for x, y in zip(tree_leaves(a), tree_leaves(b))
-    ]
-    return functools.reduce(operator.add, terms)
+    """Global inner product sum_i <a_i, b_i> over all leaves (real); over
+    all ranks for sharded leaves."""
+    return _reduce(
+        [(torch.dot(x.reshape(-1), y.reshape(-1)), layout)
+         for (x, layout), (y, _) in zip(_blocks(a), _blocks(b))],
+        "sum",
+    )
 
 
 def norm(a):
     """Global 2-norm over all leaves."""
     return torch.sqrt(dot(a, a))
+
+
+def max_abs(a):
+    """max_i |a_i| over all leaves (and ranks), a 0-d tensor."""
+    return _reduce([(torch.max(torch.abs(x)), layout) for x, layout in _blocks(a)], "max")
+
+
+def size(a) -> int:
+    """Number of entries of the whole vector."""
+    return sum(x.numel() if layout is None else layout.global_numel
+               for x, layout in _blocks(a))
+
+
+def seeded_like(a):
+    """The JAX package's deterministic start vector shaped like `a`: per
+    leaf, sin(12.9898 * k) at the entry of 1-based flat index k; a sharded
+    leaf's block holds the entries of its own global indices."""
+    if isinstance(a, (tuple, list)):
+        return type(a)(seeded_like(ai) for ai in a)
+    if isinstance(a, Sharded):
+        k = a.layout.global_flat_index(a.local.device) + 1
+        return Sharded(torch.sin(k.to(a.local.dtype) * 12.9898), a.layout)
+    k = torch.arange(1, a.numel() + 1, dtype=a.dtype, device=a.device).reshape(a.shape)
+    return torch.sin(k * 12.9898)
 
 
 def axpy(alpha, x, y):
@@ -82,6 +157,8 @@ def where(pred, x, y):
 
 def ravel(x):
     """Flatten a vector into one 1D tensor."""
+    if any(layout is not None for _, layout in _blocks(x)):
+        raise TypeError("ravel of a Sharded vector: gather it first (parallel.dist)")
     return torch.cat([leaf.reshape(-1) for leaf in tree_leaves(x)])
 
 

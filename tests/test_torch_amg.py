@@ -10,9 +10,6 @@ products and dense inverses differ in the last bits between the two).
 """
 import functools
 import json
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -21,7 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from jax_reference_jit import jsolve
+from jax_reference_jit import jitted_jax_chebyshev_setups, jsolve, run_in_f32
 from gridapsolvers_tpu.fem import poisson_problem as j_poisson_problem
 from gridapsolvers_tpu.fem.assembly import eliminate_dirichlet as j_eliminate
 from gridapsolvers_tpu.fem.assembly import laplacian as j_laplacian
@@ -43,7 +40,19 @@ from gridapsolvers_tpu_torch.ops import banded_stencil, ell_spmv
 torch.set_num_threads(1)
 
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+@pytest.fixture(autouse=True)
+def _compiled_jax_chebyshev_setups(request):
+    """The JAX references' Chebyshev smoothers set up compiled
+    (`jitted_jax_chebyshev_setups`), but in the true-f32 check: there JAX
+    sets up eagerly, as in a process of its own (compiled, its f32 set-up
+    rounds otherwise)."""
+    if request.node.name == "test_amg_cg_f32_16cubed_takes_6_iterations":
+        yield
+        return
+    with jitted_jax_chebyshev_setups():
+        yield
+
+
 VCYCLE_RTOL = 1e-10
 HIST_RTOL = 1e-8
 LMAX_RTOL = 1e-12
@@ -254,7 +263,6 @@ def test_amg_as_gmg_coarsest_solver_matches_jax():
 _F32_DRIVER = r"""
 import json
 import jax
-jax.config.update("jax_platforms", "cpu")   # true f32: x64 stays off
 import numpy as np
 import torch
 from gridapsolvers_tpu.fem import poisson_problem as j_poisson_problem
@@ -280,16 +288,12 @@ print("AMG_F32 " + json.dumps({
 
 
 def test_amg_cg_f32_16cubed_takes_6_iterations():
-    """The slice in true f32 (JAX with x64 off, in its own process): both
+    """The slice in true f32 (JAX with x64 off, `run_in_f32`): both
     packages take 6 iterations to rtol 1e-6 and reach the same solution to
     f32 round-off."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
-    r = subprocess.run([sys.executable, "-c", _F32_DRIVER], capture_output=True, text=True,
-                       timeout=300, env=env, cwd=REPO)
-    assert r.returncode == 0, (r.stdout[-1500:], r.stderr[-1500:])
-    line = [ln for ln in r.stdout.splitlines() if ln.startswith("AMG_F32 ")]
-    assert line, r.stdout[-1500:]
+    out = run_in_f32(_F32_DRIVER)
+    line = [ln for ln in out.splitlines() if ln.startswith("AMG_F32 ")]
+    assert line, out[-1500:]
     res = json.loads(line[-1].split(" ", 1)[1])
     assert res["jax"][:3] == [6, 2, "float32"], res     # 2: CONVERGED_RTOL
     assert res["port"][:3] == [6, 2, "torch.float32"], res

@@ -55,6 +55,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from jax_reference_jit import jitted_jax_dense
 from gridapsolvers_tpu.fem.mesh import CartesianMesh as JMesh
 from gridapsolvers_tpu.multilevel import adaptive as ja
 from gridapsolvers_tpu.multilevel import forest as jf
@@ -68,6 +69,15 @@ from gridapsolvers_tpu_torch.utils import pytrees as tpt
 from gridapsolvers_tpu_torch.utils import timing
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _compiled_jax_dense():
+    """The JAX package's `ELLMatrix.todense` runs compiled
+    (`jitted_jax_dense`)."""
+    with jitted_jax_dense():
+        yield
+
 
 EXACT_RTOL = 1e-13
 APPLY_RTOL = 1e-12

@@ -18,7 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
-from jax_reference_jit import jsolve
+from jax_reference_jit import jitted_jax_dense, jsolve
 
 import gridapsolvers_tpu.blocks as JB
 import gridapsolvers_tpu.fem.assembly2 as jasm
@@ -41,6 +41,14 @@ from gridapsolvers_tpu_torch.fem.stokes import stokes_problem
 from gridapsolvers_tpu_torch.utils import pytrees as pt
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _compiled_jax_dense():
+    """The JAX package's `ELLMatrix.todense` runs compiled
+    (`jitted_jax_dense`)."""
+    with jitted_jax_dense():
+        yield
 
 
 def _solve(solver, A, b, jax_side):

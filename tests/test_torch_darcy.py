@@ -35,7 +35,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from jax_reference_jit import jitted_jax_solves
+from jax_reference_jit import jitted_jax_dense, jitted_jax_solves
 from gridapsolvers_tpu.fem import darcy as j_darcy
 from gridapsolvers_tpu.fem import hdiv as j_hdiv
 from gridapsolvers_tpu.models.darcy import solve_darcy as j_solve_darcy
@@ -46,6 +46,14 @@ from gridapsolvers_tpu_torch.models import solve_darcy
 from gridapsolvers_tpu_torch.ops import banded_stencil, ell_spmv
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _compiled_jax_dense():
+    """The JAX package's `ELLMatrix.todense` runs compiled
+    (`jitted_jax_dense`)."""
+    with jitted_jax_dense():
+        yield
 
 
 EXACT_RTOL = 1e-14

@@ -20,6 +20,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from jax_reference_jit import jitted_jax_patch_setups
 from gridapsolvers_tpu.algebra.ell_view import ell_pattern as j_ell_pattern
 from gridapsolvers_tpu.algebra.ell_view import ell_values as j_ell_values
 from gridapsolvers_tpu.algebra.flat import blocked_kernel_from_scipy as j_blocked_from_scipy
@@ -75,6 +76,14 @@ from gridapsolvers_tpu_torch.patches.materialized import (
 from gridapsolvers_tpu_torch.utils import pytrees as pt
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _compiled_jax_patch_setups():
+    """The JAX references' patch smoothers refresh their values compiled
+    (`jitted_jax_patch_setups`)."""
+    with jitted_jax_patch_setups():
+        yield
 
 OP_RTOL = 1e-12
 HIST_RTOL = 1e-8

@@ -14,7 +14,7 @@ import torch
 import jax.numpy as jnp
 
 import __graft_entry__
-from jax_reference_jit import jsolve, jitted_jax_solves
+from jax_reference_jit import jitted_jax_dense, jitted_jax_solves, jsolve
 from gridapsolvers_tpu.fem import poisson_problem as j_poisson_problem
 from gridapsolvers_tpu.fem.assembly import eliminate_dirichlet as j_eliminate
 from gridapsolvers_tpu.fem.assembly import laplacian as j_laplacian
@@ -46,6 +46,14 @@ from gridapsolvers_tpu_torch.models import solve_poisson, solve_poisson_const
 from gridapsolvers_tpu_torch.ops import banded_stencil, const_stencil
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _compiled_jax_dense():
+    """The JAX package's `ELLMatrix.todense` runs compiled
+    (`jitted_jax_dense`)."""
+    with jitted_jax_dense():
+        yield
 
 
 HIST_RTOL = 1e-10

@@ -29,11 +29,13 @@ shared by both tests; the JAX solves run under `jax.jit`.
 import functools
 
 import numpy as np
+import pytest
 import torch
 
 import jax
 import jax.numpy as jnp
 
+from jax_reference_jit import jitted_jax_chebyshev_setups, jitted_jax_dense
 from gridapsolvers_tpu import linear as jl
 from gridapsolvers_tpu.fem import hcurl as jh
 
@@ -42,6 +44,15 @@ from gridapsolvers_tpu_torch import linear as tl
 from gridapsolvers_tpu_torch.fem import hcurl as th
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _compiled_jax_chebyshev_setups():
+    """The JAX references' Chebyshev smoothers set up, and their
+    `ELLMatrix.todense` runs, compiled (`jitted_jax_chebyshev_setups`,
+    `jitted_jax_dense`)."""
+    with jitted_jax_chebyshev_setups(), jitted_jax_dense():
+        yield
 
 EXACT_RTOL = 1e-14
 DERHAM_ATOL = 1e-12

@@ -21,7 +21,7 @@ import torch
 import jax.numpy as jnp
 
 import gridapsolvers_tpu.linear as JL
-from jax_reference_jit import jsolve
+from jax_reference_jit import jitted_jax_dense, jsolve
 from gridapsolvers_tpu.algebra import DenseMatrix as JDense
 from gridapsolvers_tpu.algebra.ell import ell_from_scipy as j_ell_from_scipy
 from gridapsolvers_tpu.fem import poisson_problem as j_poisson_problem
@@ -55,6 +55,14 @@ from gridapsolvers_tpu_torch.multilevel import (
 from gridapsolvers_tpu_torch.utils import pytrees as pt
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _compiled_jax_dense():
+    """The JAX package's `ELLMatrix.todense` runs compiled
+    (`jitted_jax_dense`)."""
+    with jitted_jax_dense():
+        yield
 
 
 HIST_RTOL = 1e-8

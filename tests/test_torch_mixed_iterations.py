@@ -2,20 +2,17 @@
 package's, in true f32: the configurations of
 tests/test_gmg.py::test_gmg_mixed_precision_smoother and
 ::test_gmg_bf16_mixed_precision, run by both packages in one process with
-JAX's x64 off (tests/conftest.py turns it on here). The port's counts must
-equal JAX's or exceed them by one at most.
+JAX's x64 off (tests/conftest.py turns it on; `run_in_f32` turns it off
+while the script runs). The port's counts must equal JAX's or exceed them
+by one at most.
 """
 import json
-import os
-import subprocess
-import sys
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from jax_reference_jit import run_in_f32
 
 _F32_SCRIPT = r"""
 import json
 import jax
-jax.config.update("jax_platforms", "cpu")   # true f32: x64 stays off
 import numpy as np
 import jax.numpy as jnp
 import torch
@@ -81,13 +78,9 @@ def test_mixed_precision_iteration_counts_f32():
     2e-5) and ::test_gmg_bf16_mixed_precision (all bf16: converged in <= 15,
     L2 < 1e-3), in true f32 in both packages: the port's counts equal
     JAX's or exceed them by one at most."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
-    r = subprocess.run([sys.executable, "-c", _F32_SCRIPT], capture_output=True, text=True,
-                       timeout=300, env=env, cwd=REPO)
-    assert r.returncode == 0, (r.stdout[-1500:], r.stderr[-1500:])
-    line = [ln for ln in r.stdout.splitlines() if ln.startswith("MIXED_F32 ")]
-    assert line, r.stdout[-1500:]
+    out = run_in_f32(_F32_SCRIPT)
+    line = [ln for ln in out.splitlines() if ln.startswith("MIXED_F32 ")]
+    assert line, out[-1500:]
     res = json.loads(line[-1].split(" ", 1)[1])
     for name, v in res.items():
         assert v["dtype"] == "torch.float32", res

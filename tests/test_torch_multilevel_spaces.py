@@ -25,11 +25,12 @@ so a file of two tests runs after the suite's long files instead of
 delaying them.
 """
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
 
-from jax_reference_jit import jsolve
+from jax_reference_jit import jitted_jax_chebyshev_setups, jsolve
 from gridapsolvers_tpu.fem import poisson_problem as j_poisson_problem
 from gridapsolvers_tpu.fem.mesh import CartesianMesh as JMesh
 from gridapsolvers_tpu.linear import CGSolver as JCGSolver
@@ -62,6 +63,14 @@ from gridapsolvers_tpu_torch.multilevel import (
 from gridapsolvers_tpu_torch.ops import banded_stencil, ell_spmv
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _compiled_jax_chebyshev_setups():
+    """The JAX references' Chebyshev smoothers set up compiled
+    (`jitted_jax_chebyshev_setups`)."""
+    with jitted_jax_chebyshev_setups():
+        yield
 
 
 SMOOTH_RTOL = 1e-12

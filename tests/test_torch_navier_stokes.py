@@ -9,14 +9,12 @@ tests/test_navier_stokes.py:74,280, the pattern (`cols`, `row_len`,
 `group`) every velocity block carries, and a JAX problem carried across by
 `convert.navier_stokes_problem`. The f32 Newton plateau of the augmented
 cavity, and NewtonRefinement's compensated residual and refinement steps,
-against JAX's in true f32, in a subprocess (JAX x64 off, as
-tests/test_torch_mixed_iterations.py runs it).
+against JAX's in true f32 (JAX x64 off while the script runs,
+`jax_reference_jit.run_in_f32`, as tests/test_torch_mixed_iterations.py
+runs it).
 """
 import dataclasses
 import json
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -25,7 +23,9 @@ import torch
 
 import jax.numpy as jnp
 
+from jax_reference_jit import jitted_jax_methods, jitted_jax_patch_setups, run_in_f32
 from gridapsolvers_tpu.fem.navier_stokes import navier_stokes_problem as j_navier_stokes_problem
+from gridapsolvers_tpu.linear import GMRESSolver as JGMRES
 
 from gridapsolvers_tpu_torch import convert
 from gridapsolvers_tpu_torch.algebra import ELLMatrix
@@ -38,7 +38,14 @@ from gridapsolvers_tpu_torch.utils import pytrees as pt
 
 torch.set_num_threads(1)
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+@pytest.fixture(autouse=True)
+def _compiled_jax_patch_setups():
+    """The JAX references' patch smoothers refresh their values compiled
+    (`jitted_jax_patch_setups`)."""
+    with jitted_jax_patch_setups():
+        yield
+
 
 OP_RTOL = 1e-12
 NU = 0.1
@@ -224,7 +231,6 @@ def test_csr_slot_map_rejects_foreign_entries():
 _F32_SCRIPT = r"""
 import json, dataclasses as dc
 import jax
-jax.config.update("jax_platforms", "cpu")   # true f32: x64 stays off
 import numpy as np
 import jax.numpy as jnp
 import torch
@@ -241,17 +247,6 @@ from gridapsolvers_tpu_torch.nonlinear import NewtonSolver
 from gridapsolvers_tpu_torch.nonlinear.refinement import NewtonRefinement
 
 torch.set_num_threads(1)
-# the JAX package's GMRES solves under jax.jit (eagerly they dispatch op
-# by op, several times slower on the CPU); nothing else of its changes
-import gridapsolvers_tpu.linear as _jlin
-_solve, _compiled = _jlin.GMRESSolver.solve, {}
-def _jitted_solve(self, state, b, x0=None):
-    if x0 is not None:
-        return _solve(self, state, b, x0)
-    if _compiled.get(id(self), (None,))[0] is not self:   # one program a solver
-        _compiled[id(self)] = (self, jax.jit(lambda st, v: _solve(self, st, v)))
-    return _compiled[id(self)][1](state, b)
-_jlin.GMRESSolver.solve = _jitted_solve
 nc, nu, alpha = 8, 0.1, 1e3
 out = {}
 # tests/test_refinement.py's script at 8^2: each package's f32 Newton
@@ -300,12 +295,10 @@ def test_newton_refinement_f32_equal_jax():
     floors agree to 1e-2 (both compensated, from the same f32 iterate), and
     the final residuals within 2x: each is the f32 floor of its package's
     last correction solve, so they agree in size, not in digits."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(p for p in (REPO, env.get("PYTHONPATH")) if p)
-    r = subprocess.run([sys.executable, "-c", _F32_SCRIPT], capture_output=True, text=True,
-                       timeout=300, env=env, cwd=REPO)
-    assert r.returncode == 0, (r.stdout[-1500:], r.stderr[-1500:])
-    line = [ln for ln in r.stdout.splitlines() if ln.startswith("REFINE_RESULT ")]
+    # the JAX package's GMRES solves compiled (eagerly they dispatch op by
+    # op, several times slower on the CPU); nothing else of it changes
+    out = run_in_f32(_F32_SCRIPT, jitted_jax_methods((JGMRES, "solve")))
+    line = [ln for ln in out.splitlines() if ln.startswith("REFINE_RESULT ")]
     res = json.loads(line[-1].split(" ", 1)[1])
     newton, jnewton, jax_, port = res["port_newton"], res["jax_newton"], res["jax"], res["port"]
     assert (newton["niter"], newton["flag"]) == (jnewton["niter"], jnewton["flag"]) == (3, 1), res

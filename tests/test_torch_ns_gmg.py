@@ -24,7 +24,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from jax_reference_jit import jitted_jax_solves
+from jax_reference_jit import jitted_jax_patch_setups, jitted_jax_solves
 from gridapsolvers_tpu.blocks import BlockTriangularSolver as JBlockTriangular
 from gridapsolvers_tpu.blocks import MatrixBlock as JMatrixBlock
 from gridapsolvers_tpu.blocks import NonlinearSystemBlock as JNonlinearBlock
@@ -54,6 +54,14 @@ from gridapsolvers_tpu_torch.patches import MaterializedVankaSmoother
 from gridapsolvers_tpu_torch.utils import pytrees as pt
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _compiled_jax_setups():
+    """The JAX references' Vanka value refreshes run compiled
+    (`jitted_jax_patch_setups`)."""
+    with jitted_jax_patch_setups():
+        yield
 
 
 NU = 0.1

@@ -28,12 +28,14 @@ the port's to 1e-14. The two tests loop over their cases (pytest-xdist's
 loadfile scheduler queues files of few tests last).
 """
 import numpy as np
+import pytest
 import scipy.linalg
 import torch
 
 import jax
 import jax.numpy as jnp
 
+from jax_reference_jit import jitted_jax_dense
 from gridapsolvers_tpu import linear as jl
 from gridapsolvers_tpu.algebra.stencil import poisson_stencil as j_poisson_stencil
 from gridapsolvers_tpu.fem import assembly as j_asm
@@ -47,6 +49,15 @@ from gridapsolvers_tpu_torch.fem.mesh import CartesianMesh
 from gridapsolvers_tpu_torch.linear.schwarz import slab_patches
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _compiled_jax_dense():
+    """The JAX package's `ELLMatrix.todense` runs compiled
+    (`jitted_jax_dense`)."""
+    with jitted_jax_dense():
+        yield
+
 
 EXACT_RTOL = 1e-14
 APPLY_RTOL = 1e-10

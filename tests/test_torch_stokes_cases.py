@@ -18,7 +18,12 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from jax_reference_jit import jitted_jax_solves
+from jax_reference_jit import (
+    jitted_jax_chebyshev_setups,
+    jitted_jax_dense,
+    jitted_jax_patch_setups,
+    jitted_jax_solves,
+)
 from gridapsolvers_tpu.fem.stokes import stokes_problem as j_stokes_problem
 from gridapsolvers_tpu.fem.stokes import velocity_gmg as j_velocity_gmg
 from gridapsolvers_tpu.models.stokes import solve_stokes as j_solve_stokes
@@ -27,6 +32,16 @@ from gridapsolvers_tpu_torch.fem.stokes import stokes_problem, velocity_gmg
 from gridapsolvers_tpu_torch.models import solve_stokes
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _compiled_jax_patch_setups():
+    """The JAX references' patch smoothers refresh their values, their
+    Chebyshev smoothers set up and `ELLMatrix.todense` runs, compiled
+    (`jitted_jax_patch_setups`, `jitted_jax_chebyshev_setups`,
+    `jitted_jax_dense`)."""
+    with jitted_jax_patch_setups(), jitted_jax_chebyshev_setups(), jitted_jax_dense():
+        yield
 
 
 HIST_RTOL = 1e-8
