@@ -8,8 +8,8 @@ Run from the repository root on a machine with one CUDA card:
 It builds the three hand-written kernels from `gridapsolvers_tpu_torch/csrc/`
 (nvcc, sm_90a, all three at once) and drives the port's Poisson, Stokes,
 Navier-Stokes, Darcy, elasticity, GenEO Schwarz, H(curl), MHD and AMR
-paths and the distributed Poisson GMG-CG through their public entry points,
-in phases that each print one line:
+paths, the distributed Poisson GMG-CG and the distributed Stokes flagship
+through their public entry points, in phases that each print one line:
 
   1 device   card name and power limit (nvidia-smi), TF32 off
   2 build    the kernels, with build seconds and ptxas register counts
@@ -111,6 +111,20 @@ in phases that each print one line:
              rank's K2 launches by extended block shape against
              k2_launches_formula, and its messages per iteration; then K2 on
              Q2's level-0 extended blocks against its plain version
+  6R path R  the distributed Stokes flagship (fem.dist_stokes_nd: FGMRES(30)
+             + upper block-triangular velocity GMG on box-partitioned
+             DistGraphELL levels and pressure-mass Jacobi-CG; 512^2 cells,
+             f64, 6 levels) through parallel.launch.run_ranks: R1 on one
+             rank over NCCL (mesh (1, 1)), and the serial twin over
+             fem.stokes.velocity_gmg, each within 1 iteration of its own
+             count in the CPU sweep at this size, and R1's u to 5e-7 and p
+             to 1e-6 of the twin's; R2 on two gloo ranks sharing the card
+             through the 1-D spelling fem.dist_stokes (mesh (2,)), held
+             against R1 (iterations within 1, the same u and p atol); each
+             rank's K3 launches by operand shape (the extended window of
+             every local apply) against k3_launches_formula, and its
+             messages per FGMRES iteration; then K3 on R2's rank-0 level-0
+             extended-window K, B and Bt blocks against its plain version
   7 K3 ops   K3 on path C's own 128^3 level operators, P and R (f32, bf16
              values, one f64 level) against its plain version
   8 times    per-apply kernel, plain, library and bound times (K1
@@ -122,8 +136,8 @@ in phases that each print one line:
              level-0 Jacobian blocks; K2 and K3 on paths J, K, M, N and O's
              operators, cold and warm, beside cuSPARSE int32 and int64; K2
              on path P1's three operators and path Q2's level-0 extended
-             blocks likewise), K3's lanes sweep, and each 128^3 and 512^2
-             solve
+             blocks likewise, K3 on path R2's extended-window blocks), K3's
+             lanes sweep, and each 128^3 and 512^2 solve
 
 Each path's 128^3 run starts with every launch count at 0 and is read
 right after, so the counts show that every operator apply went through
@@ -439,6 +453,34 @@ Q_RTOL, Q_MAXITER = 1e-8, 30
 Q_SMOOTHER = {"degree": 3, "eig_method": "gershgorin"}
 Q_ITS = (5, 12)
 Q_X_TOL = 1e-10
+# path R: the distributed Stokes flagship (fem.dist_stokes_nd: FGMRES(30) +
+# upper block-triangular velocity GMG on box-partitioned DistGraphELL levels
+# and pressure-mass Jacobi-CG, rtol 1e-8) at NC_R^2 cells (path G's size)
+# in f64 with LEVELS_R levels (a 16^2 coarsest mesh). R1: one NCCL rank,
+# mesh (1, 1), and the serial twin (the same FGMRES(30) and preconditioner
+# over fem.stokes.velocity_gmg and Jacobi-CG on prob.Mp) are each held
+# within one iteration of its own count in the port's CPU sweep of this
+# configuration (R_CPU_ITS, R_CPU_TWIN_ITS: scripts/dist_sweep.py --stokes
+# --nc 512 --worlds 1), and R1's u and p within R_U_ATOL and R_P_ATOL of
+# the twin's; R2: two gloo ranks sharing the card through the 1-D spelling
+# (fem.dist_stokes, mesh (2,)), held against R1 (iterations within one, u
+# and p likewise). R1 is not held within one iteration of the twin: the
+# twin's transfers are the linear node-grid ones where the flagship has
+# exact Q2 embeddings, and in the JAX package too their counts part beyond
+# 16^2 (twin 42/47/50 against flagship 41/42/48 at 64^2-256^2; the port's
+# equal JAX's on every layout there; no JAX count exists at 512^2).
+# R_VEL_ERR_BOUND is 1.5x the sweep's velocity error at this configuration
+# (1.9484e-10 on the CPU; solver-limited from 128^2 on, so it no longer
+# falls with h). A CPU rehearsal at another size sets the two counts and
+# the bound from the sweep at that size.
+NC_R, LEVELS_R = 512, 6
+R_MAXITER = 60
+R_CPU_ITS, R_CPU_TWIN_ITS = 50, 53
+R_U_ATOL, R_P_ATOL = 5e-7, 1e-6
+R_VEL_ERR_BOUND = 1.5 * 1.9484e-10
+# COMMS_r05.json: the JAX design's loop-body collectives of its stokes
+# FGMRES iteration (8 devices), a count to set beside the port's, not a target
+R_JAX_LOOP = {"collective-permute": 54, "all-reduce": 8}
 KERNELS = ("const_stencil", "banded_stencil", "ell_spmv")
 COUNTS = {"K1": k1.counts, "K2": k2.counts, "K3": k3.counts}
 
@@ -2620,6 +2662,123 @@ def paths_q(dev, card, elapsed, launches, check_k2, lines) -> dict:
             "t_solve": {"Q1": q1["time_s"], "Q2": max(r["time_s"] for r in q2)}}
 
 
+def r_comms(row) -> str:
+    """What a rank sent per FGMRES iteration (set-up excluded), beside the
+    JAX design's loop-body collectives."""
+    n, c = max(row["iters"], 1), row["comm"]
+    return (f"{c['p2p_batches'] / n:.1f} p2p batches ({c['p2p_messages'] / n:.1f} messages, "
+            f"{c['p2p_bytes'] / n:.0f} B), {c['all_reduces'] / n:.1f} all-reduces, "
+            f"{c['all_gathers'] / n:.1f} all-gathers ({c['gather_bytes'] / n:.0f} B) per FGMRES "
+            f"iteration (JAX loop body: {R_JAX_LOOP['collective-permute']} permutes, "
+            f"{R_JAX_LOOP['all-reduce']} all-reduces)")
+
+
+def paths_r(dev, card, elapsed, launches, check_ell, lines) -> dict:
+    """Path R (main's phase 6R): the distributed Stokes flagship through
+    `parallel.launch.run_ranks` and `parallel.weak_scaling.stokes_case`:
+    R1 on one NCCL rank (mesh (1, 1)), then the serial twin in this
+    process, then R2 on two gloo ranks sharing the card through the 1-D
+    spelling (mesh (2,)). Each rank's K3 launches in its counted solve (every count
+    set to 0 just before it, read just after) are held by operand shape
+    against `k3_launches_formula`; then K3 on R2's rank-0 extended-window
+    K, B and Bt blocks against its plain version. Returns the launches by
+    shape and those blocks for phase 8."""
+    from gridapsolvers_tpu_torch.parallel.launch import run_ranks
+    from gridapsolvers_tpu_torch.parallel.weak_scaling import (
+        STOKES_RTOL,
+        k3_launches_formula,
+        stokes_case,
+        stokes_serial_twin,
+    )
+
+    on_card = torch.device(dev).type == "cuda"
+    kind = torch.device(dev).type
+    kw = {"maxiter": R_MAXITER}
+    ncells = (NC_R, NC_R)
+    # one at a time, so no solve shares the card with another
+    t0 = time.perf_counter()
+    r1 = run_ranks(stokes_case, 1, (ncells, LEVELS_R, (1, 1)), kw, device=kind, timeout=900)[0]
+    r1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    twin = stokes_serial_twin(ncells, LEVELS_R, maxiter=R_MAXITER, device=dev)
+    twin_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r2 = run_ranks(stokes_case, 2, (ncells, LEVELS_R, (2,)),
+                   {**kw, "one_axis": True, "return_blocks": True}, device=kind, timeout=900)
+    r2_s = time.perf_counter() - t0
+    assert r1["transport"] == ("nccl" if on_card else "gloo"), r1["transport"]
+    assert all(r["transport"] == ("gloo-host-staged" if on_card else "gloo") for r in r2), [
+        r["transport"] for r in r2]
+    n1 = r1["iters"]
+    assert twin["flag"] == r1["flag"] == 2, (twin["flag"], r1["flag"])
+    assert abs(n1 - R_CPU_ITS) <= 1 and abs(twin["iters"] - R_CPU_TWIN_ITS) <= 1, (
+        n1, R_CPU_ITS, twin["iters"], R_CPU_TWIN_ITS)
+    du1 = max(float(np.abs(a - b).max()) for a, b in zip(r1["u"], twin["u"]))
+    dp1 = float(np.abs(r1["p"] - twin["p"]).max())
+    assert du1 <= R_U_ATOL and dp1 <= R_P_ATOL, f"R1 against the twin: u {du1:.2e}, p {dp1:.2e}"
+    assert r1["velocity_error"] <= R_VEL_ERR_BOUND, (r1["velocity_error"], R_VEL_ERR_BOUND)
+    assert all(abs(r["iters"] - n1) <= 1 and r["flag"] == r1["flag"] for r in r2), [
+        r["iters"] for r in r2]
+    du2 = max(float(np.abs(a - b).max()) for a, b in zip(r2[0]["u"], r1["u"]))
+    dp2 = float(np.abs(r2[0]["p"] - r1["p"]).max())
+    assert du2 <= R_U_ATOL and dp2 <= R_P_ATOL, f"R2 against R1: u {du2:.2e}, p {dp2:.2e}"
+    for u in r2[0]["u"] + (r2[0]["p"],):
+        assert np.isfinite(u).all()
+    assert r2[0]["u"][0].shape == ((2 * NC_R + 1) ** 2,) and r2[0]["p"].shape == ((NC_R + 1) ** 2,)
+    shapes = {}
+    for tag, r in [("R1", r1)] + [(f"R2 rank {i}", r) for i, r in enumerate(r2)]:
+        want = k3_launches_formula(r["iters"], r["cg_its"], r["operand_shapes"], r["m"])
+        if on_card:
+            assert r["k3_shapes"] == want, (tag, r["k3_shapes"], want)
+            assert r["k3_plain"] == 0 and r["k3_launches"] == sum(want.values()), tag
+        else:  # a rehearsal on the CPU: every apply on the plain version
+            assert r["k3_launches"] == 0 and r["k3_plain"] == sum(want.values()), tag
+            r["k3_shapes"] = want
+        shapes[tag] = r["k3_shapes"]
+        launches[tag] = {"K1": 0, "K2": 0, "K3": r["k3_launches"]}
+
+    def by_shape(counts):
+        return ", ".join(f"{'x'.join(map(str, k))} {v}" for k, v in sorted(counts.items()))
+
+    h = r1["history"]
+    print(f"[6R path R] distributed Stokes flagship, {NC_R}^2 cells f64 ({r1['dofs']} dofs), "
+          f"{LEVELS_R} levels (sharded {r1['sharded_levels']}), FGMRES(30) rtol {STOKES_RTOL:g} + "
+          f"upper block-triangular (velocity GMG, Chebyshev(3) on Lanczos bounds; pressure-mass "
+          f"Jacobi-CG): serial twin {twin['iters']} its (CPU {R_CPU_TWIN_ITS}), |u-u_h| "
+          f"{twin['velocity_error']:.4e} ({twin_s:.1f} s with set-up) | R1 1 rank "
+          f"({r1['transport']}): {n1} its (CPU {R_CPU_ITS}), flag "
+          f"{r1['flag']}, rel res {h[-1] / h[0]:.3e}, against the twin u {du1:.1e} p {dp1:.1e}, "
+          f"|u-u_h| {r1['velocity_error']:.4e} (bound {R_VEL_ERR_BOUND:.0e}), |p-p_h| "
+          f"{r1['pressure_error']:.4e}; pressure CG {sum(r1['cg_its'])} its; set-up "
+          f"{r1['setup_s']:.2f} s, solve {r1['time_s']:.3f} s, launch {r1_s:.1f} s; K3 by shape "
+          f"= formula: {by_shape(shapes['R1'])} | R2 2 ranks ({r2[0]['transport']}, 1-D "
+          f"spelling, padded {r2[0]['padded']}): {[r['iters'] for r in r2]} its, against R1 u "
+          f"{du2:.1e} p {dp2:.1e}; set-up {[round(r['setup_s'], 2) for r in r2]} s, solve "
+          f"{[round(r['time_s'], 3) for r in r2]} s, launch {r2_s:.1f} s; "
+          + "; ".join(f"rank {i}: K3 by shape = formula: {by_shape(shapes[f'R2 rank {i}'])}; "
+                      f"{r_comms(r)}" for i, r in enumerate(r2))
+          + f"; R1 {r_comms(r1)} {elapsed()}", flush=True)
+
+    # K3 on R2's rank-0 extended-window blocks against its plain version
+    ops, op_launches = {}, {}
+    rng = np.random.default_rng(17)
+    for name, (values, cols, ncols, row_len, group) in r2[0]["blocks"].items():
+        A = ELLMatrix(values.to(dev), cols.to(dev), int(ncols), row_len.to(dev), group)
+        key = f"R K3 level 0 {name} {A.nrows}x{A.ncols}"
+        ops[key] = A
+        op_launches[key] = shapes["R2 rank 0"][tuple(A.shape)]
+        xr = torch.from_numpy(rng.normal(size=A.ncols)).to(dev, torch.float64)
+        check_ell(f"[R2 rank 0 {name} {A.nrows}x{A.ncols} K={A.row_width}]f64", A, xr, F64_TOL)
+    print(f"[6R kernels] {len(lines)} cases within f64 {F64_TOL:.0e}: " + ", ".join(lines)
+          + f" {elapsed()}", flush=True)
+    lines.clear()
+    t_solve = {"R1": r1["time_s"], "R2": max(r["time_s"] for r in r2)}
+    del r2
+    torch.cuda.empty_cache()
+    return {"shapes": shapes, "ops": ops, "op_launches": op_launches, "t_solve": t_solve}
+
+
 def ell_csr(A: ELLMatrix, index=torch.int32) -> torch.Tensor:
     """A's real entries (slots within each row's length) as a torch CSR
     tensor on its device: the cuSPARSE yardstick, never called by the
@@ -3773,6 +3932,9 @@ def main() -> None:
     # ---- 6Q path Q: the distributed Poisson GMG-CG (1 NCCL rank, 2 gloo ranks)
     dq = paths_q(dev, card, elapsed, launches, check_k2, lines)
 
+    # ---- 6R path R: the distributed Stokes flagship (1 NCCL rank, 2 gloo ranks)
+    dr = paths_r(dev, card, elapsed, launches, check_ell, lines)
+
     # ---- 7 K3 on path C's own operators ---------------------------------
     ops = ([(f"level {i}", m) for i, m in enumerate(amg["mats"]) if i > 0]
            + [(f"P{i}", m) for i, m in enumerate(amg["P"])]
@@ -4020,9 +4182,9 @@ def main() -> None:
     # CSR with int32 and int64 indices on the same real entries (which also
     # cross-checks y) and the bytes bound
     jk_keys = {}
-    jk_ops = {**jk["jk_ops"], **mno["ops"], **amr["ops"], **dq["ops"]}
+    jk_ops = {**jk["jk_ops"], **mno["ops"], **amr["ops"], **dq["ops"], **dr["ops"]}
     j_block_launches = {**jk["j_block_launches"], **mno["op_launches"], **amr["op_launches"],
-                        **dq["op_launches"]}
+                        **dq["op_launches"], **dr["op_launches"]}
     for key, A in jk_ops.items():
         xj = vec(A.shape[1], f64)
         if isinstance(A, StencilMatrix):
@@ -4181,6 +4343,16 @@ def main() -> None:
           + " | solve only (in the ranks, one run): " + ", ".join(
               f"{k} {v * 1e3:.2f} ms" for k, v in dq["t_solve"].items()) + f" {elapsed()}",
           flush=True)
+    print(f"[8 R] {card} | path R2's rank-0 level-0 extended-window blocks ({NC_R}^2, 2 ranks), "
+          f"f64, median of {TIMING_RUNS} (CUDA events), ms per apply: "
+          + "; ".join(f"{key} ({desc}) kernel {t[key]:.4f} (cold {t[key + ' cold']:.4f}), "
+                      f"plain {t[key + ' plain']:.4f}, cuSPARSE int32 {t[key + ' library']:.4f} "
+                      f"(int64 {t[key + ' library int64']:.4f}), bound {bound[key]:.4f}, "
+                      f"launches a rank {j_block_launches[key]}, kernel vs cuSPARSE y {e:.1e}"
+                      for key, (desc, e) in jk_keys.items() if key in dr["ops"])
+          + " | solve only (in the ranks, second run): " + ", ".join(
+              f"{k} {v * 1e3:.2f} ms" for k, v in dr["t_solve"].items()) + f" {elapsed()}",
+          flush=True)
     if opts.profile is not None:
         summary = profile_solve(lambda: cgC.solve(stateC, probC.b), opts.profile, "path_c")
         print(f"[profile] path C solve, {card}: {summary} {elapsed()}", flush=True)
@@ -4282,6 +4454,10 @@ def main() -> None:
                              if key.startswith("Q K2")}
     for tag, shapes_q in dq["shapes"].items():
         k2_row["distributed"][f"{tag} launches_by_shape"] = by_shape(shapes_q)
+    k3_row["distributed"] = {"R2 " + key.split(" K3 ")[1]: jk_entry(key) for key in jk_keys
+                             if key.startswith("R K3")}
+    for tag, shapes_r in dr["shapes"].items():
+        k3_row["distributed"][f"{tag} launches_by_shape"] = by_shape(shapes_r)
     for name, path in (("hcurl", "N"), ("mhd", "O")):
         k3_row[name] = {f"{path}1 " + key.split(" K3 ")[1]: jk_entry(key) for key in jk_keys
                         if key.startswith(f"{path} K3")}

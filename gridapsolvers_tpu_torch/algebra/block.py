@@ -117,7 +117,7 @@ class RowStack:
         out = None
         for op, xi in zip(self.ops, x):
             c = op.matvec(xi)
-            out = c if out is None else out + c
+            out = c if out is None else pt.add(out, c)
         return out
 
     @property

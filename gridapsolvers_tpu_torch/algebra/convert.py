@@ -16,7 +16,6 @@ from .stencil import StencilMatrix
 # and the part of the port that brings them (ROADMAP.md queue 1)
 _LATER = {
     "DistELLMatrix": "the distributed slice",
-    "DistGraphELL": "the distributed slice",
 }
 
 
@@ -54,6 +53,10 @@ def to_scipy(op) -> sp.csr_matrix:
         S = sp.hstack([to_scipy(o) for o in op.ops], format="csr")
     elif isinstance(op, BlockOperator):
         S = _block_operator(op)
+    elif type(op).__name__ == "DistGraphELL":
+        from ..parallel.dist_ell_nd import dist_to_scipy_nd
+
+        S = dist_to_scipy_nd(op)  # padded, shard-major box order; collective
     else:
         name = type(op).__name__
         later = _LATER.get(name)

@@ -13,9 +13,11 @@ global padded-ELL table of the flattened system, split the usual way:
     only, on the operator's device.
 
 Supported leaves: `ELLMatrix` and non-periodic `StencilMatrix` (through a
-static-validity banded view). Supported composites: `BlockOperator`
-(nested), `FieldwiseOperator`, `ColumnStack`, `RowStack`, None blocks.
-The tables are built on the leaves' device.
+static-validity banded view); the traversal and `rebuild_with_leaves`
+also walk `parallel.dist_ell_nd.DistGraphELL` leaves, as the JAX
+package's do. Supported composites: `BlockOperator` (nested),
+`FieldwiseOperator`, `ColumnStack`, `RowStack`, None blocks. The tables
+are built on the leaves' device.
 """
 from __future__ import annotations
 
@@ -35,7 +37,9 @@ from .stencil import StencilMatrix
 
 
 def _is_leaf(op) -> bool:
-    return isinstance(op, (ELLMatrix, StencilMatrix))
+    from ..parallel.dist_ell_nd import DistGraphELL
+
+    return isinstance(op, (ELLMatrix, StencilMatrix, DistGraphELL))
 
 
 def _row_fields(op) -> int:

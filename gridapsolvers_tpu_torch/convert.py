@@ -636,3 +636,45 @@ def unshard_to_jax(blocks: Sequence, procs: Sequence[int], *, lead: int = 0) -> 
         coords = np.unravel_index(r, procs)
         out[_block_slices(shape, procs, coords, lead)] = b
     return out
+
+
+def box_vector_from_jax(a: np.ndarray, mesh, *, device=None, dtype=None):
+    """This rank's block of a JAX box-ordered vector (shard-major padded,
+    `parallel/dist_ell_nd.py`), handed over whole: rank r keeps entries
+    [r·m, (r + 1)·m), as a `Sharded` vector of the partition layout."""
+    from .parallel.dist_ell_nd import PartitionLayout
+    from .utils.pytrees import Sharded
+
+    a = np.asarray(a).reshape(-1)
+    layout = PartitionLayout(mesh, a.shape[0] // mesh.size)
+    r, m = mesh.rank, layout.m
+    return Sharded(_tensor(a[r * m:(r + 1) * m], device or mesh.device, dtype), layout)
+
+
+def box_vector_to_jax(blocks: Sequence) -> np.ndarray:
+    """The whole shard-major padded vector from every rank's block (in
+    rank order), as the numpy array a JAX box-ordered vector holds."""
+    return np.concatenate([b.cpu().numpy() if isinstance(b, torch.Tensor) else np.asarray(b)
+                           for b in blocks])
+
+
+def graph_ell_from_jax(values: np.ndarray, cols_loc: np.ndarray, send_tbls: Sequence[np.ndarray],
+                       dirs, n_cols: int, m_in: int, mesh, *, device=None, dtype=None):
+    """This rank's `parallel.dist_ell_nd.DistGraphELL` from a JAX
+    `DistGraphELL`'s whole arrays (values and cols_loc (n_shards·m_out,
+    K), one (n_shards, W_d) send table an offset) and static fields. The
+    JAX operator keeps no row lengths, so every slot of a row counts."""
+    from .parallel.dist_ell_nd import DistGraphELL
+
+    dev = resolve_device(device or mesh.device)
+    m_out = np.asarray(values).shape[0] // mesh.size
+    rows = slice(mesh.rank * m_out, (mesh.rank + 1) * m_out)
+    window = int(m_in) + sum(np.asarray(t).shape[1] for t in send_tbls)
+    local = ELLMatrix(_tensor(np.asarray(values)[rows], dev, dtype),
+                      torch.from_numpy(np.ascontiguousarray(np.asarray(cols_loc)[rows])).to(dev),
+                      window)
+    tbls = tuple(torch.from_numpy(np.ascontiguousarray(np.asarray(t)[mesh.rank])).to(dev)
+                 for t in send_tbls)
+    return DistGraphELL(local=local, send_tbls=tbls, n_cols=int(n_cols), m_in=int(m_in),
+                        dirs=tuple(tuple(int(v) for v in d) for d in dirs), mesh=mesh,
+                        axes=tuple(mesh.axis_names))

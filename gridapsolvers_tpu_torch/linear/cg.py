@@ -3,7 +3,8 @@
 Port of `gridapsolvers_tpu/linear/cg.py` (reference CGSolvers.jl:10-23,
 73-138). The JAX `lax.while_loop` becomes a Python loop; the stopping test
 reads the residual norm to the host once per iteration (the one host sync
-of an iteration). Supports:
+of an iteration). On sharded vectors an iteration makes two all-reduces:
+<p, A p>, then <r, z> and ||r||² together (`pt.dots`). Supports:
   - flexible CG (Polak-Ribière beta, reference CGSolvers.jl:93-100),
   - Lanczos diagnostics: the (alpha, beta) histories that define the
     Lanczos tridiagonal for condition-number estimation (reference
@@ -66,8 +67,9 @@ class CGSolver(LinearSolver):
         r = pt.sub(b, A.matvec(x))
         z = precond(r)
         p = z
-        gamma = pt.dot(r, z)
-        rnorm0 = pt.norm(r)
+        # one reduction (one all-reduce on sharded vectors) for both
+        gamma, rr = pt.dots((r, z), (r, r))
+        rnorm0 = torch.sqrt(rr)
         hist = init_history(tols.maxiter, rnorm0)
         alphas = torch.zeros((tols.maxiter,), dtype=rnorm0.dtype, device=rnorm0.device)
         betas = torch.zeros_like(alphas)
@@ -81,14 +83,15 @@ class CGSolver(LinearSolver):
             x = pt.axpy(alpha, p, x)
             r_new = pt.axpy(-alpha, w, r)
             z_new = precond(r_new)
-            gamma_new = pt.dot(r_new, z_new)
             if self.flexible:
                 # Polak-Ribière: beta = z_new · (r_new - r) / gamma
-                beta = (gamma_new - pt.dot(z_new, r)) / gamma
+                gamma_new, zr, rr = pt.dots((r_new, z_new), (z_new, r), (r_new, r_new))
+                beta = (gamma_new - zr) / gamma
             else:
+                gamma_new, rr = pt.dots((r_new, z_new), (r_new, r_new))
                 beta = gamma_new / gamma
             p = pt.axpy(beta, p, z_new)
-            rnorm = pt.norm(r_new)
+            rnorm = torch.sqrt(rr)
             hist[it + 1] = rnorm
             alphas[it] = alpha
             betas[it] = beta

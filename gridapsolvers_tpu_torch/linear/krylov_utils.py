@@ -49,12 +49,11 @@ def basis_set(basis, j: int, v):
 
 def basis_dots(basis, w, nvec: int):
     """dots[k] = <V[k], w> for k < nvec: one (nvec, n) @ (n,) product a
-    leaf, summed over the leaves."""
-    total = None
-    for lb, lw in zip(pt.tree_leaves(basis), pt.tree_leaves(w)):
-        d = lb[:nvec].reshape(nvec, -1) @ lw.reshape(-1)
-        total = d if total is None else total + d
-    return total
+    leaf, summed over the leaves; the sharded leaves' local dots go over
+    the ranks as one (nvec,) all-reduce a process mesh."""
+    return pt.reduce_terms(
+        [(lb[:nvec].reshape(nvec, -1) @ lw.reshape(-1), layout)
+         for (lb, layout), (lw, _) in zip(pt.blocks(basis), pt.blocks(w))], "sum")
 
 
 def basis_combine(basis, coefs: torch.Tensor, nvec: int):

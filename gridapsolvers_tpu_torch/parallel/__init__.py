@@ -1,10 +1,12 @@
 """Distributed (block-split) layer: process meshes, sharded grid vectors,
-halo-exchange operators and the distributed Poisson GMG.
+halo-exchange operators, the distributed Poisson GMG and box-partitioned
+sparse operators.
 
 Port of `gridapsolvers_tpu/parallel/` for its stencil path (`mesh`,
-`dist`, `halo`, `weak_scaling`), with `launch` (no JAX counterpart) to
-start the ranks. Its names are those of `gridapsolvers_tpu/parallel/
-__init__.py:1-15`; the sharded ELL, graph and block layers come later.
+`dist`, `halo`, `weak_scaling`) and its box-partitioned graph layer
+(`dist_ell_nd`), with `launch` (no JAX counterpart) to start the ranks.
+Its names are those of `gridapsolvers_tpu/parallel/__init__.py`; the 1-D
+window ELL (`dist_ell`) and block (`dist_block`) layers come later.
 """
 from .mesh import (  # noqa: F401
     axis_size,
@@ -20,4 +22,18 @@ from .dist import (  # noqa: F401
     replicate_stencil,
     shard_grid_vector,
     shard_stencil,
+)
+from .dist_ell_nd import (  # noqa: F401
+    BoxPartition,
+    DistGraphELL,
+    PartitionLayout,
+    box_partition,
+    contiguous_partition,
+    dense_padded_nd,
+    dist_to_scipy_nd,
+    redistribute_vector_nd,
+    scipy_in_part_order,
+    shard_csr_nd,
+    shard_vector_nd,
+    unshard_vector_nd,
 )

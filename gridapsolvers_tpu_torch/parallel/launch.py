@@ -22,12 +22,14 @@ order.
   are NumPy arrays, tensors (results are moved to the host) and plain
   values.
 
-The ranks run on the card unless the caller passes `device="cpu"`
-(`device=None` is "cuda", and raises where there is none). Backend: NCCL
-where each rank has a GPU of its own, gloo otherwise (the CPU, or more
-ranks than GPUs; `mesh.ProcessMesh` then stages the messages of CUDA
-blocks through host buffers). `rank_device()` gives the device of the
-calling rank.
+A CPU rank runs torch on its share of the host's cores (the core count
+over the rank count), unless the caller's environment sets
+OMP_NUM_THREADS, which the ranks inherit and follow. The ranks run on
+the card unless the caller passes `device="cpu"` (`device=None` is
+"cuda", and raises where there is none). Backend: NCCL where each rank
+has a GPU of its own, gloo otherwise (the CPU, or more ranks than GPUs;
+`mesh.ProcessMesh` then stages the messages of CUDA blocks through host
+buffers). `rank_device()` gives the device of the calling rank.
 
 Run a rank by hand: `python -m gridapsolvers_tpu_torch.parallel.launch
 SPEC RANK`, where SPEC is the pickle `run_ranks` writes.
@@ -200,6 +202,10 @@ def _child(spec_path: str, rank: int) -> None:
         if device.startswith("cuda"):
             device = f"cuda:{rank % torch.cuda.device_count()}"
             torch.cuda.set_device(device)
+        elif "OMP_NUM_THREADS" not in os.environ:
+            # ranks share the host's cores: spinning intra-op threads of
+            # one rank would starve the others at every collective
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // spec["world"]))
         # this file runs as __main__: set the device where importers read it
         importlib.import_module("gridapsolvers_tpu_torch.parallel.launch")._DEVICE = device
         dist.init_process_group(

@@ -4,10 +4,10 @@ Port of `gridapsolvers_tpu/parallel/mesh.py`. The JAX package lays the
 blocks of a grid on the devices of a `jax.sharding.Mesh` and lets XLA
 insert the collectives; here each block lives on one rank of a
 `torch.distributed` process group, and the collectives are explicit
-(`all_reduce`, `all_gather`, `exchange`). A `ProcessMesh` arranges the
-first ranks of the world in a grid with the JAX axis names ("p", or "px",
-"py", "pz"); on the card each rank holds one GPU and the group runs NCCL,
-on the CPU it runs gloo.
+(`all_reduce`, `all_gather`, `exchange`, `exchange_offsets`). A
+`ProcessMesh` arranges the first ranks of the world in a grid with the
+JAX axis names ("p", or "px", "py", "pz"); on the card each rank holds
+one GPU and the group runs NCCL, on the CPU it runs gloo.
 
 Where ranks share a card (gloo over CUDA blocks: more ranks than GPUs, as
 on a one-GPU machine), the blocks and kernels stay on the card and every
@@ -47,8 +47,9 @@ P = PartitionSpec
 @dataclasses.dataclass
 class CommCounts:
     """What this rank sent since the last `reset`: point-to-point batches
-    (one a halo exchange along one mesh axis), messages and bytes in
-    them, all-reduces, all-gathers and the bytes it contributed to them."""
+    (one a halo exchange along one mesh axis, or one exchange over a list
+    of mesh offsets), messages and bytes in them, all-reduces,
+    all-gathers and the bytes it contributed to them."""
 
     p2p_batches: int = 0
     p2p_messages: int = 0
@@ -104,18 +105,26 @@ class ProcessMesh:
     def axis_index(self, axis: str) -> int:
         return self.axis_names.index(axis)
 
+    def offset_rank(self, delta: Sequence[int], wrap: bool = False) -> Optional[int]:
+        """The rank at this one's mesh coordinates plus `delta` (one entry
+        an axis; rank ids are row-major over the mesh axes), or None off
+        the mesh where the axes do not wrap."""
+        c = [a + b for a, b in zip(self.coords, delta)]
+        if not all(0 <= ci < n for ci, n in zip(c, self.devices_shape)):
+            if not wrap:
+                return None
+            c = [ci % n for ci, n in zip(c, self.devices_shape)]
+        return int(np.ravel_multi_index(c, self.devices_shape))
+
+    def _unit(self, axis: str, step: int) -> tuple:
+        d = [0] * len(self.devices_shape)
+        d[self.axis_index(axis)] = step
+        return tuple(d)
+
     def neighbor(self, axis: str, step: int, wrap: bool = False) -> Optional[int]:
         """Rank `step` places along `axis` from this one, or None past an
         edge of an axis that does not wrap."""
-        k = self.axis_index(axis)
-        c = list(self.coords)
-        c[k] += step
-        n = self.devices_shape[k]
-        if not 0 <= c[k] < n:
-            if not wrap:
-                return None
-            c[k] %= n
-        return int(np.ravel_multi_index(c, self.devices_shape))
+        return self.offset_rank(self._unit(axis, step), wrap)
 
     # -- collectives over the mesh's group -------------------------------
 
@@ -156,49 +165,52 @@ class ProcessMesh:
         the next rank), each zeros where there is no such rank (an edge
         of an axis that does not wrap) and None where nothing of that
         kind was sent. All ranks of the mesh call it together."""
-        k = self.axis_index(axis)
-        prev_r, next_r = self.neighbor(axis, -1, wrap), self.neighbor(axis, +1, wrap)
+        sent = [(d, t) for d, t in ((self._unit(axis, -1), up), (self._unit(axis, +1), down))
+                if t is not None]
+        got = iter(self.exchange_offsets([d for d, _ in sent], [t for _, t in sent], wrap=wrap))
+        return tuple(None if t is None else next(got) for t in (up, down))
+
+    def exchange_offsets(self, dirs, bufs, reverse: bool = False, wrap: bool = False) -> list:
+        """One batch over a static list of mesh-coordinate offsets (the
+        JAX package's one `lax.ppermute` an offset, `parallel/dist_ell_nd.py`):
+        for each offset d, send bufs[i] to the rank at coords - d and
+        receive, into a tensor shaped like bufs[i], what the rank at
+        coords + d sent (`reverse`: to coords + d, from coords - d). Where
+        there is no such rank (off the mesh, and the axes do not wrap)
+        nothing is sent, and the received tensor is zeros. Each offset
+        travels under its own tag, so two ranks trading in both directions
+        (or both neighbours of a wrapped axis of two) keep the messages
+        apart; every rank posts in the same order. Ranks sharing a card
+        stage the messages through pinned host buffers. All ranks of the
+        mesh call it together."""
+        sign = 1 if reverse else -1
         staged = self._staged()
-
-        def host(t):
-            if not staged:
-                return t.contiguous()
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t)
-            return h
-
-        def buf(t):
-            return torch.empty(t.shape, dtype=t.dtype, pin_memory=staged,
-                               device="cpu" if staged else t.device)
-
         ops, got = [], {}
-        # tags tell the two directions apart where both neighbours are one
-        # rank (a wrapped axis of two); every rank posts in the same order
-        for name, t, dst, src, tag in (("from_prev", up, next_r, prev_r, 2 * k),
-                                       ("from_next", down, prev_r, next_r, 2 * k + 1)):
-            if t is None:
-                continue
+        for i, (d, t) in enumerate(zip(dirs, bufs)):
+            dst = self.offset_rank(tuple(sign * a for a in d), wrap)
+            src = self.offset_rank(tuple(-sign * a for a in d), wrap)
             if dst is not None:
-                h = host(t)
-                ops.append(dist.P2POp(dist.isend, h, dst, self.group, tag))
+                h = t.contiguous()
+                if staged:
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(h)
+                ops.append(dist.P2POp(dist.isend, h, dst, self.group, i))
                 comm_counts.p2p_messages += 1
                 comm_counts.p2p_bytes += t.numel() * t.element_size()
             if src is not None:
-                got[name] = buf(t)
-                ops.append(dist.P2POp(dist.irecv, got[name], src, self.group, tag))
+                got[i] = torch.empty(t.shape, dtype=t.dtype, pin_memory=staged,
+                                     device="cpu" if staged else t.device)
+                ops.append(dist.P2POp(dist.irecv, got[i], src, self.group, i))
         if ops:
             comm_counts.p2p_batches += 1
             for w in dist.batch_isend_irecv(ops):
                 w.wait()
         out = []
-        for name, t in (("from_prev", up), ("from_next", down)):
-            if t is None:
-                out.append(None)
-            elif name in got:
-                out.append(got[name].to(t.device, non_blocking=False) if staged else got[name])
-            else:
+        for i, t in enumerate(bufs):
+            if i not in got:
                 out.append(torch.zeros_like(t))
-        return tuple(out)
+            else:
+                out.append(got[i].to(t.device) if staged else got[i])
+        return out
 
 
 def _rank_device() -> torch.device:

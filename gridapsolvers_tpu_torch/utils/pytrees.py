@@ -25,20 +25,21 @@ import torch
 @dataclasses.dataclass(frozen=True, eq=False)
 class Sharded:
     """One rank's block `local` of a vector split over a process mesh.
-    `layout` (a `parallel.dist.BlockLayout`, equal for blocks of one
-    split) knows the global shape, this block's place in it and the ranks
-    that hold the others: it gives `all_reduce(t, op)` (the sum or max of
-    a 0-d tensor over the ranks), `global_numel` and
+    `layout` (a `parallel.dist.BlockLayout` of a grid split, or a
+    `parallel.dist_ell_nd.PartitionLayout` of a box partition; equal for
+    blocks of one split) knows the global shape, this block's place in it
+    and the ranks that hold the others: it gives `mesh`, `all_reduce(t,
+    op)` (the sum or max of a tensor over the ranks), `global_numel` and
     `global_flat_index(device)`."""
 
     local: torch.Tensor
     layout: object
 
 
-def _blocks(x):
+def blocks(x):
     """(tensor, layout or None) of every leaf, in order."""
     if isinstance(x, (tuple, list)):
-        return [blk for xi in x for blk in _blocks(xi)]
+        return [blk for xi in x for blk in blocks(xi)]
     if isinstance(x, Sharded):
         return [(x.local, x.layout)]
     return [(x, None)]
@@ -47,7 +48,7 @@ def _blocks(x):
 def tree_leaves(x):
     """Leaves of a tensor or (nested) tuple/list of tensors, in order; a
     `Sharded` leaf gives its local block."""
-    return [t for t, _ in _blocks(x)]
+    return [t for t, _ in blocks(x)]
 
 
 def tree_map(fn, x, *rest):
@@ -63,28 +64,46 @@ def tree_map(fn, x, *rest):
     return fn(x, *rest)
 
 
-def _reduce(parts, op):
-    """Combine per-leaf 0-d terms: `op` over the plain leaves' terms and
-    the all-reduced local terms of each sharded layout (one collective a
-    layout)."""
-    plain, by_layout = [], {}
+def reduce_terms(parts, op="sum"):
+    """Combine per-leaf terms (0-d, or equal-shaped tensors such as a
+    Krylov basis' stacked dots), given as (term, layout or None) pairs:
+    `op` over the plain leaves' terms and the all-reduced local terms of
+    the sharded ones. Layouts over one process mesh (a velocity and a
+    pressure partition, say) share one collective."""
+    plain, by_mesh = [], {}
     for t, layout in parts:
         if layout is None:
             plain.append(t)
         else:
-            by_layout.setdefault(layout, []).append(t)
+            by_mesh.setdefault(id(layout.mesh), (layout, []))[1].append(t)
     combine = operator.add if op == "sum" else torch.maximum
-    for layout, terms in by_layout.items():
+    for layout, terms in by_mesh.values():
         plain.append(layout.all_reduce(functools.reduce(combine, terms), op))
     return functools.reduce(combine, plain)
+
 
 
 def dot(a, b):
     """Global inner product sum_i <a_i, b_i> over all leaves (real); over
     all ranks for sharded leaves."""
-    return _reduce(
+    return reduce_terms(
         [(torch.dot(x.reshape(-1), y.reshape(-1)), layout)
-         for (x, layout), (y, _) in zip(_blocks(a), _blocks(b))],
+         for (x, layout), (y, _) in zip(blocks(a), blocks(b))],
+        "sum",
+    )
+
+
+def dots(*pairs):
+    """The inner products <a, b> of several (a, b) pairs of one structure,
+    as one 1-D tensor: each entry is what `dot(a, b)` gives (the same
+    per-leaf sums in the same order), and the sharded leaves' local terms
+    go over the ranks as one all-reduce a process mesh."""
+    per_leaf = zip(*[blocks(a) for a, _ in pairs], *[blocks(b) for _, b in pairs])
+    n = len(pairs)
+    return reduce_terms(
+        [(torch.stack([torch.dot(leaves[k][0].reshape(-1), leaves[n + k][0].reshape(-1))
+                       for k in range(n)]), leaves[0][1])
+         for leaves in per_leaf],
         "sum",
     )
 
@@ -96,13 +115,13 @@ def norm(a):
 
 def max_abs(a):
     """max_i |a_i| over all leaves (and ranks), a 0-d tensor."""
-    return _reduce([(torch.max(torch.abs(x)), layout) for x, layout in _blocks(a)], "max")
+    return reduce_terms([(torch.max(torch.abs(x)), layout) for x, layout in blocks(a)], "max")
 
 
 def size(a) -> int:
     """Number of entries of the whole vector."""
     return sum(x.numel() if layout is None else layout.global_numel
-               for x, layout in _blocks(a))
+               for x, layout in blocks(a))
 
 
 def seeded_like(a):
@@ -157,7 +176,7 @@ def where(pred, x, y):
 
 def ravel(x):
     """Flatten a vector into one 1D tensor."""
-    if any(layout is not None for _, layout in _blocks(x)):
+    if any(layout is not None for _, layout in blocks(x)):
         raise TypeError("ravel of a Sharded vector: gather it first (parallel.dist)")
     return torch.cat([leaf.reshape(-1) for leaf in tree_leaves(x)])
 
